@@ -1,0 +1,525 @@
+"""Image matchers: SuperPoint extraction + LightGlue matching (counterpart
+of `ImageMatcherBase` and `LightGlueMatcher` in
+`icepy4d_tpu/matching/matchers.py`, static depth).
+
+A tiled match runs SuperPoint once per image over a batch of tiles (in
+chunks that fit an activation budget) and LightGlue once over the batch
+of selected tile pairs. Keypoint sets are fixed-size with validity
+masks; matched rows are packed on the device and only they cross to the
+host, where keypoints are deduplicated and verified.
+"""
+
+from __future__ import annotations
+
+import logging
+from itertools import product
+
+import numpy as np
+import torch
+
+from icepy4d_tpu_torch.device import resolve_device
+from icepy4d_tpu_torch.matching.enums import (
+    GeometricVerification,
+    Quality,
+    QUALITY_NAMES,
+    QUALITY_SCALE,
+    TileSelection,
+)
+from icepy4d_tpu_torch.matching.geometric_verification import \
+    geometric_verification
+from icepy4d_tpu_torch.matching.tiling import Tiler
+from icepy4d_tpu_torch.models.convert import (bundled_checkpoint,
+                                              lightglue_params, load_params,
+                                              superpoint_state_dict)
+from icepy4d_tpu_torch.models.lightglue import LightGlue
+from icepy4d_tpu_torch.models.superpoint import SuperPoint
+from icepy4d_tpu_torch.ops.buckets import pad_bucket
+from icepy4d_tpu_torch.ops.image import (extract_tiles, quality_resize,
+                                         rgb_to_gray)
+from icepy4d_tpu_torch.ops.topk import safe_top_k
+from icepy4d_tpu_torch.utils.timer import AverageTimer
+
+logger = logging.getLogger("icepy4d_tpu_torch")
+
+MIN_MATCHES_PER_TILE = 5
+
+
+def _round_up_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def _host_gray(im):
+    """RGB uint8 -> grayscale on the host (a third of the upload bytes)."""
+    if isinstance(im, np.ndarray) and im.ndim == 3 and im.dtype == np.uint8:
+        import cv2
+
+        return cv2.cvtColor(im, cv2.COLOR_RGB2GRAY)
+    return im
+
+
+def _preprocess(image: torch.Tensor, quality: str) -> torch.Tensor:
+    """uint8/float (H, W[, 3]) -> grayscale [0, 1] at the quality scale."""
+    img = image.to(torch.float32)
+    if image.dtype == torch.uint8:
+        img = img / 255.0
+    if img.ndim == 3:
+        img = rgb_to_gray(img)
+    return quality_resize(img, quality)
+
+
+def _downsample(img: torch.Tensor, n: int) -> torch.Tensor:
+    for _ in range(n):
+        img = quality_resize(img, "medium")
+    return img
+
+
+def _cat(outs: list[dict]) -> dict:
+    return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
+
+
+def _load_tree(opt: dict, params_key: str, weights_key: str, bundled: str):
+    """Parameter tree (JAX layout) from opt, from an .npz path, or from
+    the repository's bundled checkpoint."""
+    if params_key in opt:
+        return opt[params_key]
+    path = opt.get(weights_key) or bundled_checkpoint(bundled)
+    if path is None:
+        raise FileNotFoundError(
+            f"no {weights_key} given and weights/{bundled} is missing")
+    if not str(path).endswith(".npz"):
+        raise ValueError(f"{weights_key} must be an .npz checkpoint")
+    return load_params(path)
+
+
+class ImageMatcherBase:
+    """Template-method matcher.
+
+    match(image0, image1, quality, tile_selection, **config) resizes by
+    quality, extracts and matches (full frame or tiled), rescales the
+    keypoints to original pixels, verifies them geometrically, and
+    exposes the results as mkpts0/1, descriptors0/1, scores0/1, mconf,
+    F and inlier_mask.
+    """
+
+    def __init__(self, opt: dict | None = None, device=None) -> None:
+        opt = dict(opt or {})
+        self._opt = opt
+        self.device = resolve_device(device)
+        self._max_keypoints = int(opt.get("max_keypoints", -1))
+        if self._max_keypoints <= 0:
+            self._max_keypoints = 4096
+        self._reset()
+        self._sp_cache: dict[tuple, SuperPoint] = {}
+        self._sp_state = superpoint_state_dict(_load_tree(
+            opt, "superpoint_params", "superpoint_weights",
+            "superpoint_synthetic.npz"))
+        self._build_models(opt)
+
+    # -- subclass hooks ------------------------------------------------------
+
+    def _build_models(self, opt: dict) -> None:
+        raise NotImplementedError
+
+    def _run_matcher(self, data: dict) -> dict:
+        raise NotImplementedError
+
+    # -- public results ------------------------------------------------------
+
+    def _reset(self) -> None:
+        d = self.descriptor_dim
+        self._mkpts0 = np.empty((0, 2), np.float32)
+        self._mkpts1 = np.empty((0, 2), np.float32)
+        self._descriptors0 = np.empty((d, 0), np.float32)
+        self._descriptors1 = np.empty((d, 0), np.float32)
+        self._scores0 = np.empty((0,), np.float32)
+        self._scores1 = np.empty((0,), np.float32)
+        self._mconf = np.empty((0,), np.float32)
+        self._F = None
+        self._inlier_mask = None
+
+    @property
+    def mkpts0(self) -> np.ndarray:
+        return self._mkpts0
+
+    @property
+    def mkpts1(self) -> np.ndarray:
+        return self._mkpts1
+
+    @property
+    def descriptors0(self) -> np.ndarray:
+        return self._descriptors0
+
+    @property
+    def descriptors1(self) -> np.ndarray:
+        return self._descriptors1
+
+    @property
+    def scores0(self) -> np.ndarray:
+        return self._scores0
+
+    @property
+    def scores1(self) -> np.ndarray:
+        return self._scores1
+
+    @property
+    def mconf(self) -> np.ndarray:
+        return self._mconf
+
+    @property
+    def F(self):
+        return self._F
+
+    @property
+    def inlier_mask(self):
+        return self._inlier_mask
+
+    @property
+    def descriptor_dim(self) -> int:
+        return 256
+
+    # -- building blocks -----------------------------------------------------
+
+    def _superpoint(self, max_keypoints: int) -> SuperPoint:
+        key = (
+            max_keypoints,
+            float(self._opt.get("keypoint_threshold", 0.0005)),
+            int(self._opt.get("nms_radius", 4)),
+            str(self._opt.get("activation_dtype", "float32")),
+        )
+        if key not in self._sp_cache:
+            self._sp_cache[key] = SuperPoint(
+                max_keypoints=key[0], detection_threshold=key[1],
+                nms_radius=key[2], dtype=getattr(torch, key[3]),
+                device=self.device).load_state_dict(self._sp_state)
+        return self._sp_cache[key]
+
+    @staticmethod
+    def _auto_chunk(n: int, bytes_per_item: float,
+                    budget: float = 2 << 30, cap: int = 32) -> int:
+        """Largest divisor of n whose chunk fits the activation budget."""
+        c = max(1, min(cap, n, int(budget // max(bytes_per_item, 1.0))))
+        while n % c:
+            c -= 1
+        return c
+
+    def _extract_chunk(self, t: int, h: int, w: int) -> int:
+        # peak live trunk state per tile: two full-res 64-channel maps
+        act_bytes = 2 if str(self._opt.get(
+            "activation_dtype", "float32")) == "bfloat16" else 4
+        return self._auto_chunk(t, h * w * 128 * act_bytes, budget=13 << 30)
+
+    def _extract(self, tiles: torch.Tensor, max_keypoints: int) -> dict:
+        """SuperPoint over a (T, h, w) tile batch, chunked over T."""
+        sp = self._superpoint(max_keypoints)
+        t, h, w = tiles.shape[:3]
+        chunk = self._extract_chunk(t, h, w)
+        return _cat([sp.extract(tiles[i:i + chunk])
+                     for i in range(0, t, chunk)])
+
+    def _extract_tiled(self, g: torch.Tensor, origins: np.ndarray,
+                       th: int, tw: int, max_keypoints: int) -> dict:
+        """Features of every tile of an image; tiles are cut chunk by
+        chunk so only one chunk of tiles is alive at a time."""
+        sp = self._superpoint(max_keypoints)
+        t = len(origins)
+        chunk = self._extract_chunk(t, th, tw)
+        return _cat([sp.extract(extract_tiles(g, origins[i:i + chunk], th, tw))
+                     for i in range(0, t, chunk)])
+
+    def _match_pair_batch(self, feats0: dict, feats1: dict, idx0: np.ndarray,
+                          idx1: np.ndarray, pair_valid: np.ndarray,
+                          size0: tuple[int, int],
+                          size1: tuple[int, int]) -> dict:
+        """Matcher forward over a padded batch of tile pairs, chunked so
+        the (K+1)^2 assignment matrices fit a 6 GiB budget.
+
+        idx0/idx1 (P,): tile index per pair; pair_valid (P,) masks the
+        bucket padding; size* = (w, h) of one tile."""
+        p = len(idx0)
+        k = int(feats0["keypoints"].shape[1])
+        chunk = self._auto_chunk(p, (k + 1) ** 2 * 4 * 4, budget=6 << 30)
+        i0 = torch.as_tensor(idx0, dtype=torch.int64, device=self.device)
+        i1 = torch.as_tensor(idx1, dtype=torch.int64, device=self.device)
+        pv = torch.as_tensor(pair_valid, device=self.device)
+        return _cat([
+            self._gather_and_match_eager(feats0, feats1, i0[i:i + chunk],
+                                         i1[i:i + chunk], pv[i:i + chunk],
+                                         size0, size1)
+            for i in range(0, p, chunk)])
+
+    def _gather_and_match_eager(self, feats0, feats1, idx0, idx1,
+                                pair_valid, size0, size1) -> dict:
+        pv = pair_valid[:, None]
+        p = idx0.shape[0]
+
+        def size(s):
+            return torch.tensor(s, dtype=torch.float32,
+                                device=self.device).expand(p, 2)
+
+        data = {
+            "kpts0": feats0["keypoints"][idx0],
+            "desc0": feats0["descriptors"][idx0],
+            "mask0": feats0["mask"][idx0] & pv,
+            "size0": size(size0),
+            "kpts1": feats1["keypoints"][idx1],
+            "desc1": feats1["descriptors"][idx1],
+            "mask1": feats1["mask"][idx1] & pv,
+            "size1": size(size1),
+        }
+        return self._run_matcher(data)
+
+    @staticmethod
+    def _compact_on_device(feats0: dict, feats1: dict, out: dict, idx0, idx1,
+                           origins0, origins1, cap: int, n_out: int):
+        """Keep the `cap` best matches of each pair and pack the valid rows
+        of all pairs into (n_out, ...) on the device, in (pair, rank)
+        order."""
+        m0 = out["matches0"]                            # (P, K)
+        score = torch.where(m0 > -1, out["mscores0"], -1.0)
+        topv, topi = safe_top_k(score, cap)             # (P, C)
+        sel = topv > -0.5
+        j = torch.gather(m0.clamp_min(0).long(), 1, topi)
+
+        def side(feats, idx, org, pick):
+            mk = torch.gather(feats["keypoints"][idx], 1,
+                              pick[..., None].expand(-1, -1, 2)) \
+                + org[idx][:, None, :]
+            d = feats["descriptors"][idx]
+            d = torch.gather(d, 1, pick[..., None].expand(-1, -1, d.shape[-1]))
+            s = torch.gather(feats["scores"][idx], 1, pick)
+            return mk, d, s
+
+        mk0, d0, s0 = side(feats0, idx0, origins0, topi)
+        mk1, d1, s1 = side(feats1, idx1, origins1, j)
+        # valid rows first; the stable sort keeps their (pair, rank) order
+        order = torch.argsort((~sel).reshape(-1).to(torch.uint8),
+                              stable=True)[:n_out]
+
+        def pick(a):
+            return a.reshape((-1,) + a.shape[2:])[order]
+
+        return tuple(pick(a) for a in (mk0, mk1, d0, d1, s0, s1, topv))
+
+    def _assemble(self, feats0: dict, feats1: dict, out: dict,
+                  idx0: np.ndarray, idx1: np.ndarray, origins0: np.ndarray,
+                  origins1: np.ndarray):
+        """Batched match result -> host arrays of the matched rows."""
+        k = int(out["matches0"].shape[1])
+        counts = (out["matches0"] > -1).sum(1).cpu().numpy()
+        cap = min(k, int(self._opt.get("max_matches_per_pair", 4096)),
+                  pad_bucket(max(int(counts.max(initial=0)), 1)))
+        total = int(np.minimum(counts, cap).sum())
+        n_out = min(pad_bucket(max(total, 1)), len(counts) * cap)
+        dev = self.device
+        arrs = self._compact_on_device(
+            feats0, feats1, out,
+            torch.as_tensor(idx0, dtype=torch.int64, device=dev),
+            torch.as_tensor(idx1, dtype=torch.int64, device=dev),
+            torch.as_tensor(origins0, dtype=torch.float32, device=dev),
+            torch.as_tensor(origins1, dtype=torch.float32, device=dev),
+            cap, n_out)
+        return tuple(a[:total].cpu().numpy() for a in arrs)
+
+    @staticmethod
+    def _dedup(mk0, mk1, d0, d1, s0, s1, conf):
+        """Unique features on image0."""
+        mk0, uniq = np.unique(mk0, axis=0, return_index=True)
+        return (mk0, mk1[uniq], d0[uniq], d1[uniq], s0[uniq], s1[uniq],
+                conf[uniq])
+
+    # -- tile selection --------------------------------------------------------
+
+    def _select_tile_pairs(self, img0, img1, tiler0: Tiler, tiler1: Tiler,
+                           method: TileSelection,
+                           min_matches_per_tile: int) -> list[tuple[int, int]]:
+        t0 = list(tiler0.limits.keys())
+        t1 = list(tiler1.limits.keys())
+        if method is TileSelection.EXHAUSTIVE:
+            return sorted(product(t0, t1))
+        if method is TileSelection.GRID:
+            return sorted(zip(t0, t1))
+        if method is not TileSelection.PRESELECTION:
+            raise ValueError(f"unsupported tile selection {method}")
+
+        # PRESELECTION: match downsampled full frames, keep the tile pairs
+        # that hold enough of the coarse matches
+        h = int(img0.shape[0])
+        n_down = 4 if h > 8000 else 3 if h > 4000 else 2 if h > 2000 else 1
+        mk0, mk1, *_ = self._match_full(_downsample(img0, n_down),
+                                        _downsample(img1, n_down),
+                                        max_keypoints=4096)
+        scale = float(2 ** n_down)
+        mk0 = mk0 * scale
+        mk1 = mk1 * scale
+
+        def inside(mk, lim):
+            return ((mk[:, 0] > lim[0]) & (mk[:, 0] < lim[2])
+                    & (mk[:, 1] > lim[1]) & (mk[:, 1] < lim[3]))
+
+        pairs = [(i, j) for i, j in sorted(product(t0, t1))
+                 if int((inside(mk0, tiler0.limits[i])
+                         & inside(mk1, tiler1.limits[j])).sum())
+                 > min_matches_per_tile]
+        logger.info("Preselection kept %d tile pairs", len(pairs))
+        return pairs
+
+    # -- matching paths --------------------------------------------------------
+
+    def _match_full(self, img0, img1, max_keypoints: int | None = None):
+        """One full-frame pair -> host arrays of the matched rows.
+
+        No pre-padding: SuperPoint pads internally and masks its own pad
+        band as border."""
+        k = max_keypoints or self._max_keypoints
+        if img0.shape == img1.shape:
+            feats = self._extract(torch.stack([img0, img1]), k)
+            feats0 = {n: a[:1] for n, a in feats.items()}
+            feats1 = {n: a[1:] for n, a in feats.items()}
+        else:
+            feats0 = self._extract(img0[None], k)
+            feats1 = self._extract(img1[None], k)
+        self.timer.update("extraction")
+        size0 = (int(img0.shape[1]), int(img0.shape[0]))
+        size1 = (int(img1.shape[1]), int(img1.shape[0]))
+        idx = np.zeros(1, np.int64)
+        out = self._match_pair_batch(feats0, feats1, idx, idx,
+                                     np.ones(1, bool), size0, size1)
+        zero = np.zeros((1, 2), np.float32)
+        return self._assemble(feats0, feats1, out, idx, idx, zero, zero)
+
+    def _empty_result(self):
+        z2 = np.empty((0, 2), np.float32)
+        zd = np.empty((0, self.descriptor_dim), np.float32)
+        z = np.empty((0,), np.float32)
+        return z2, z2, zd, zd, z, z, z
+
+    def _match_tiled(self, img0, img1, tile_selection: TileSelection, grid,
+                     overlap: int, origin, min_matches_per_tile: int):
+        tiler0 = Tiler(grid=grid, overlap=overlap, origin=origin)
+        tiler1 = Tiler(grid=grid, overlap=overlap, origin=origin)
+        tiler0.compute_limits_by_grid(np.empty(img0.shape[:2]))
+        tiler1.compute_limits_by_grid(np.empty(img1.shape[:2]))
+        pairs = self._select_tile_pairs(img0, img1, tiler0, tiler1,
+                                        tile_selection, min_matches_per_tile)
+        self.timer.update("preselection")
+        if not pairs:
+            logger.warning("No tile pairs selected: no matches")
+            return self._empty_result()
+
+        # pad the pair list to a power-of-two batch, as the JAX package does
+        p = len(pairs)
+        bucket = _round_up_pow2(p)
+        idx0 = np.zeros(bucket, np.int64)
+        idx1 = np.zeros(bucket, np.int64)
+        idx0[:p] = [a for a, _ in pairs]
+        idx1[:p] = [b for _, b in pairs]
+        pair_valid = np.arange(bucket) < p
+
+        th, tw = tiler0.tile_size
+        feats0 = self._extract_tiled(img0, tiler0.tile_origins(), th, tw,
+                                     self._max_keypoints)
+        feats1 = self._extract_tiled(img1, tiler1.tile_origins(), th, tw,
+                                     self._max_keypoints)
+        self.timer.update("extraction")
+        out = self._match_pair_batch(feats0, feats1, idx0, idx1, pair_valid,
+                                     (tw, th), (tw, th))
+        res = self._assemble(feats0, feats1, out, idx0, idx1,
+                             tiler0.tile_origins().astype(np.float32),
+                             tiler1.tile_origins().astype(np.float32))
+        return self._dedup(*res)
+
+    # -- template method --------------------------------------------------------
+
+    def match(self, image0: np.ndarray, image1: np.ndarray,
+              quality: Quality = Quality.HIGH,
+              tile_selection: TileSelection = TileSelection.NONE,
+              **config) -> bool:
+        """Match two images; results land in the mkpts0/1... properties.
+
+        quality resize -> (full | tiled) matching -> rescale keypoints ->
+        geometric verification -> inlier filtering."""
+        self.timer = AverageTimer(device=self.device)
+        self._reset()
+        gv_method = config.get("geometric_verification",
+                               GeometricVerification.PYDEGENSAC)
+        qname = QUALITY_NAMES[quality]
+
+        with torch.inference_mode():
+            g0 = _preprocess(torch.from_numpy(np.ascontiguousarray(
+                _host_gray(image0))).to(self.device), qname)
+            g1 = _preprocess(torch.from_numpy(np.ascontiguousarray(
+                _host_gray(image1))).to(self.device), qname)
+            if tile_selection is TileSelection.NONE:
+                res = self._match_full(g0, g1)
+            else:
+                res = self._match_tiled(
+                    g0, g1, tile_selection,
+                    grid=config.get("grid", [1, 1]),
+                    overlap=int(config.get("overlap", 0)),
+                    origin=config.get("origin", [0, 0]),
+                    min_matches_per_tile=int(config.get(
+                        "min_matches_per_tile", MIN_MATCHES_PER_TILE)))
+        mk0, mk1, d0, d1, s0, s1, conf = res
+
+        # back to original-resolution pixel coordinates
+        scale = QUALITY_SCALE[quality]
+        self._mkpts0 = np.asarray(mk0 / scale, np.float32)
+        self._mkpts1 = np.asarray(mk1 / scale, np.float32)
+        self._descriptors0 = np.asarray(d0, np.float32).T
+        self._descriptors1 = np.asarray(d1, np.float32).T
+        self._scores0 = np.asarray(s0, np.float32)
+        self._scores1 = np.asarray(s1, np.float32)
+        self._mconf = np.asarray(conf, np.float32)
+        logger.info("Found %d putative matches", len(self._mconf))
+        self.timer.update("matching")
+
+        if gv_method is not GeometricVerification.NONE:
+            F, mask = geometric_verification(
+                self._mkpts0, self._mkpts1, method=gv_method,
+                threshold=config.get("threshold", 1.0),
+                confidence=config.get("confidence", 0.9999),
+                scores=self._mconf, device=self.device)
+            self._F = F
+            self._inlier_mask = mask
+            self._filter_matches_by_mask(mask)
+            self.timer.update("geometric_verification")
+
+        self.timer.print("Matching")
+        return True
+
+    def _filter_matches_by_mask(self, mask: np.ndarray) -> None:
+        """Keep inliers only."""
+        self._mkpts0 = self._mkpts0[mask]
+        self._mkpts1 = self._mkpts1[mask]
+        self._descriptors0 = self._descriptors0[:, mask]
+        self._descriptors1 = self._descriptors1[:, mask]
+        self._scores0 = self._scores0[mask]
+        self._scores1 = self._scores1[mask]
+        self._mconf = self._mconf[mask]
+
+
+class LightGlueMatcher(ImageMatcherBase):
+    """SuperPoint + LightGlue.
+
+    opt keys: max_keypoints (default 4096), filter_threshold (0.1),
+    n_layers (9), activation_dtype (LightGlue trunk, "bfloat16"),
+    superpoint_weights / lightglue_weights (.npz paths) or
+    superpoint_params / matcher_params (parameter trees in the JAX
+    layout). With no weights given, the repository's bundled
+    checkpoints (weights/*.npz) are loaded.
+    """
+
+    def _build_models(self, opt: dict) -> None:
+        self.matcher = LightGlue(
+            n_layers=int(opt.get("n_layers", 9)),
+            filter_threshold=float(opt.get("filter_threshold", 0.1)),
+            input_dim=self.descriptor_dim,
+            activation_dtype=str(opt.get("activation_dtype", "bfloat16")),
+            device=self.device,
+        )
+        self.matcher.load_state_dict(lightglue_params(_load_tree(
+            opt, "matcher_params", "lightglue_weights",
+            "lightglue_synthetic.npz")))
+
+    def _run_matcher(self, data: dict) -> dict:
+        return self.matcher.match(data)

@@ -1,0 +1,164 @@
+"""Two-view epipolar estimators for RANSAC, batched over leading dims
+(counterpart of `icepy4d_tpu/ops/epipolar.py`, the subset DEGENSAC uses).
+
+Point sets are (..., N, 2) with weights (..., N); a model batch (H, 3, 3)
+scores a shared (N, 2) point set by broadcasting, giving (H, N).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _homog(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, torch.ones_like(x[..., :1])], -1)
+
+
+def _safe(v: torch.Tensor) -> torch.Tensor:
+    """v with values of magnitude under 1e-12 replaced by 1e-12."""
+    return torch.where(v.abs() < 1e-12, torch.full_like(v, 1e-12), v)
+
+
+def hartley_normalization(x: torch.Tensor, w: torch.Tensor):
+    """Weighted Hartley normalisation: similarity T with T x of zero mean
+    and mean distance sqrt(2). x (..., N, 2), w (..., N) in [0, 1].
+    Returns (x normalised (..., N, 2), T (..., 3, 3))."""
+    wsum = w.sum(-1).clamp_min(1e-12)[..., None]
+    mu = (x * w[..., None]).sum(-2) / wsum                      # (..., 2)
+    d = ((x - mu[..., None, :]) ** 2).sum(-1).sqrt()
+    mean_d = (d * w).sum(-1) / wsum[..., 0]
+    s = math.sqrt(2.0) / mean_d.clamp_min(1e-12)                # (...)
+    T = torch.zeros(s.shape + (3, 3), dtype=x.dtype, device=x.device)
+    T[..., 0, 0] = s
+    T[..., 1, 1] = s
+    T[..., 0, 2] = -s * mu[..., 0]
+    T[..., 1, 2] = -s * mu[..., 1]
+    T[..., 2, 2] = 1.0
+    return (x - mu[..., None, :]) * s[..., None, None], T
+
+
+def eight_point(x0: torch.Tensor, x1: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """Weighted normalised 8-point algorithm -> F (..., 3, 3), rank 2,
+    scaled to F[2, 2] = 1. w = 0 masks a row."""
+    x0n, T0 = hartley_normalization(x0, w)
+    x1n, T1 = hartley_normalization(x1, w)
+    u0, v0 = x0n[..., 0], x0n[..., 1]
+    u1, v1 = x1n[..., 0], x1n[..., 1]
+    # constraint rows: x1^T F x0 = 0
+    A = torch.stack([u1 * u0, u1 * v0, u1, v1 * u0, v1 * v0, v1, u0, v0,
+                     torch.ones_like(u0)], -1) * w[..., None]
+    _, V = torch.linalg.eigh(A.mT @ A)          # smallest eigenvector first
+    F = V[..., :, 0].reshape(V.shape[:-2] + (3, 3))
+    U, S, Vh = torch.linalg.svd(F)
+    S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], -1)
+    F = T1.mT @ (U @ torch.diag_embed(S) @ Vh) @ T0
+    return F / _safe(F[..., 2, 2])[..., None, None]
+
+
+def sampson_distance(F: torch.Tensor, x0: torch.Tensor,
+                     x1: torch.Tensor) -> torch.Tensor:
+    """Squared first-order geometric (Sampson) distance, px^2."""
+    x0h, x1h = _homog(x0), _homog(x1)
+    Fx0 = x0h @ F.mT
+    Ftx1 = x1h @ F
+    num = (x1h * Fx0).sum(-1) ** 2
+    den = Fx0[..., 0] ** 2 + Fx0[..., 1] ** 2 \
+        + Ftx1[..., 0] ** 2 + Ftx1[..., 1] ** 2
+    return num / den.clamp_min(1e-12)
+
+
+def homography_dlt(x0: torch.Tensor, x1: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """Weighted normalised DLT -> H (..., 3, 3) with x1 ~ H x0."""
+    x0n, T0 = hartley_normalization(x0, w)
+    x1n, T1 = hartley_normalization(x1, w)
+    u0, v0 = x0n[..., 0], x0n[..., 1]
+    u1, v1 = x1n[..., 0], x1n[..., 1]
+    one, zero = torch.ones_like(u0), torch.zeros_like(u0)
+    # two constraint rows per point from x1 x (H x0) = 0
+    rows_a = torch.stack([u0, v0, one, zero, zero, zero,
+                          -u1 * u0, -u1 * v0, -u1], -1)
+    rows_b = torch.stack([zero, zero, zero, u0, v0, one,
+                          -v1 * u0, -v1 * v0, -v1], -1)
+    A = torch.cat([rows_a * w[..., None], rows_b * w[..., None]], -2)
+    _, V = torch.linalg.eigh(A.mT @ A)
+    H = V[..., :, 0].reshape(V.shape[:-2] + (3, 3))
+    H = torch.linalg.solve(T1, H @ T0)
+    return H / _safe(H[..., 2, 2])[..., None, None]
+
+
+def homography_sym_transfer(H: torch.Tensor, x0: torch.Tensor,
+                            x1: torch.Tensor) -> torch.Tensor:
+    """Symmetric transfer squared error (px^2) for x1 ~ H x0."""
+    x0h, x1h = _homog(x0), _homog(x1)
+    Hx0 = x0h @ H.mT
+    fwd = Hx0[..., :2] / _safe(Hx0[..., 2:3])
+    Hinv_x1 = torch.linalg.solve(H, x1h.mT).mT
+    bwd = Hinv_x1[..., :2] / _safe(Hinv_x1[..., 2:3])
+    return ((fwd - x1) ** 2).sum(-1) + ((bwd - x0) ** 2).sum(-1)
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Cross-product matrix [v]_x of (..., 3) -> (..., 3, 3)."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([z, -v[..., 2], v[..., 1]], -1),
+        torch.stack([v[..., 2], z, -v[..., 0]], -1),
+        torch.stack([-v[..., 1], v[..., 0], z], -1),
+    ], -2)
+
+
+def parallax_lines(H: torch.Tensor, x0: torch.Tensor,
+                   x1: torch.Tensor) -> torch.Tensor:
+    """Lines (H x0) x x1 through the epipole e', normalised so |l . e|
+    is a point-line distance."""
+    lines = torch.linalg.cross(_homog(x0) @ H.mT, _homog(x1), dim=-1)
+    return lines / lines[..., :2].norm(dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def parallax_sq(H: torch.Tensor, x0: torch.Tensor,
+                x1: torch.Tensor) -> torch.Tensor:
+    """Squared plane parallax |H x0 - x1|^2 in pixels per point."""
+    Hx0 = _homog(x0) @ H.mT
+    return ((Hx0[..., :2] / _safe(Hx0[..., 2:3]) - x1) ** 2).sum(-1)
+
+
+def epipole_from_lines(H: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """Weighted least-squares intersection of the parallax line bundle
+    (smallest eigenvector of sum w l l^T). With two points of weight 1
+    it is their lines' exact intersection, the minimal solver of the
+    epipole RANSAC."""
+    lines = parallax_lines(H, x0, x1)
+    M = torch.einsum("...ni,...nj,...n->...ij", lines, lines, weights)
+    return torch.linalg.eigh(M)[1][..., :, 0]
+
+
+def fundamental_from_homography(H: torch.Tensor, x0: torch.Tensor,
+                                x1: torch.Tensor,
+                                w_offplane: torch.Tensor) -> torch.Tensor:
+    """Plane and parallax: F = [e']_x H, with e' the IRLS intersection of
+    the off-plane correspondences' lines (H x0) x x1.
+
+    Lines are weighted by squared parallax, saturated at ~20 px so one
+    gross mismatch cannot dominate; two reweighting passes then demote
+    lines far from the epipole."""
+    lines = parallax_lines(H, x0, x1)
+    par2 = parallax_sq(H, x0, x1)
+    sat = 20.0 ** 2
+    w_offplane = w_offplane * par2 / (1.0 + par2 / sat)
+
+    def solve(w):
+        M = torch.einsum("ni,nj,n->ij", lines, lines, w)
+        return torch.linalg.eigh(M)[1][:, 0]
+
+    e1 = solve(w_offplane)
+    for _ in range(2):
+        d = (lines @ e1).abs() / e1[:2].norm().clamp_min(1e-12)
+        scale = (d * w_offplane).sum() / w_offplane.sum().clamp_min(1e-12)
+        e1 = solve(w_offplane / (1.0 + (d / scale.clamp_min(1e-12)) ** 2))
+    F = skew(e1) @ H
+    return F / F.abs().max().clamp_min(1e-12)

@@ -1,0 +1,82 @@
+"""The port stands alone: it imports neither JAX nor icepy4d_tpu, and its
+default device is the card, never a silent CPU fallback."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "icepy4d_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "icepy4d_tpu")
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [REPO / "chip_smoke.py",
+                            REPO / "scripts" / "profile_torch_match.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_forbidden_import(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_imports_with_jax_blocked():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"   # any import of them raises
+        "import importlib\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+
+
+def test_default_device_raises_without_cuda(no_cuda):
+    from icepy4d_tpu_torch.matching import (LightGlueMatcher,
+                                            geometric_verification)
+    from icepy4d_tpu_torch.models import LightGlue, SuperPoint
+
+    for make in (LightGlueMatcher, SuperPoint, LightGlue):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    x = np.random.default_rng(0).uniform(0, 100, (20, 2)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        geometric_verification(x, x + 1.0)
+
+
+def test_cuda_tensor_without_card_raises_not_falls_back(no_cuda):
+    """The dispatch takes the plain version only for CPU tensors."""
+    from icepy4d_tpu_torch.ops import attention, nms
+
+    meta = torch.zeros((1, 4, 8, 64), device="meta")
+    with pytest.raises(ValueError):
+        attention.masked_attention(meta, meta, meta,
+                                   torch.ones((1, 8), dtype=torch.bool,
+                                              device="meta"))
+    with pytest.raises(ValueError):
+        nms.fused_nms_border(torch.zeros((1, 8, 8), device="meta"),
+                             4, 4, 8, 8)

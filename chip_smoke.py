@@ -8,20 +8,37 @@ anything in it fails:
 
 1. card: a CUDA device must be present; prints nvidia-smi's name and
    power limit;
-2. build: compiles every kernel in icepy4d_tpu_torch/csrc with nvcc;
+2. build: compiles every kernel in icepy4d_tpu_torch/csrc with nvcc, one
+   process per source, all at once;
 3. kernel vs plain: each kernel against its plain PyTorch version, at
    small odd shapes and at the main path's shapes (NMS bitwise equal;
    attention within 2e-3 of the plain bf16 version, relative to the
-   output's largest magnitude);
-4. main path: LightGlueMatcher.match on a synthetic 6012x4008 pair with
-   a known 8-px shift, 2x2 EXHAUSTIVE tiles, 4096 keypoints per tile,
-   bundled weights, PYDEGENSAC; run cold, then warm with every launch
-   count set to 0, and checked against the ground-truth shift;
-5. LightGlue on the main path's tile-pair batch, with the attention
+   output's largest magnitude; the disparity sweep at (67, 45) with
+   window 5, (161, 203) over [-12, 12] and over [-20, -4]: cost within
+   1e-5 and inbounds equal on every pixel, disparity and uniqueness
+   within 5e-3 on every pixel that is not a near tie, i.e. whose best
+   and runner-up plain costs are more than 1e-5 apart, and disparity on
+   >= 99.99% of all pixels);
+4. matcher path: LightGlueMatcher.match on a synthetic 6012x4008 pair
+   with a known 8-px shift, 2x2 EXHAUSTIVE tiles, 4096 keypoints per
+   tile, bundled weights, PYDEGENSAC; run cold, then warm with every
+   launch count set to 0, and checked against the ground-truth shift;
+5. LightGlue on the matcher path's tile-pair batch, with the attention
    kernel and with the plain bf16 attention: >= 98% of the match
    decisions agree with an f32 trunk, and with the matcher's bf16 trunk
    they agree as well as two plain versions do (see the phase);
-6. times: each kernel, its plain version, the library call that
+6. dense path: PlaneSweepStereo at the pipeline's settings (128 planes,
+   window 7, downscale 1, cost 0.4, uniqueness 0.99, left-right check
+   at tau 2) on a synthetic 6012x4008 pair of a textured plane at
+   Z = 200 seen by f = 6000 px cameras 10 m apart, the second yawed by
+   1 degree and rolled by 0.5; run cold, then warm with every launch
+   count set to 0: exactly 2 sweep launches, >= half of the inner
+   pixels valid, median |depth - 200| / 200 < 0.5%, the point cloud's
+   median |Z - 200| < 1 m, and the cloud written as PLY and read back;
+   then the sweep kernel against its plain version on the run's
+   rectified 4008x6012 pair, 128 hypotheses, both directions (the
+   phase-3 rule);
+7. times: each kernel, its plain version, the library call that
    computes the same function (where there is one) and the card's lower
    bound, printed as one JSON line.
 
@@ -33,6 +50,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 from pathlib import Path
@@ -41,8 +59,17 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-DX, DY = 16, 8                 # ground-truth shift of the synthetic pair
-H_IMG, W_IMG = 4008, 6012      # the pair's full size
+DX, DY = 16, 8                 # ground-truth shift of the matcher's pair
+H_IMG, W_IMG = 4008, 6012      # the pairs' full size
+PLANE_Z = 200.0                # depth of the dense pair's plane, m
+TIE = 1e-5                     # runner-up minus best cost of a near tie
+# f32 operations per pixel and hypothesis of the disparity sweep, each
+# box filter counted as separable running sums: the shift's lerp 3, the
+# products I1s^2 and I0*I1s 2, three box filters (2 passes x 2 adds) 12
+# and their scaling 3, variance and covariance 4, the ZNCC (v0*v1, max,
+# sqrt, divide, clip, 1 -) 7, the out-of-bounds fill 1, the streaming
+# argmin update 20
+SWEEP_OPS = 3 + 2 + 12 + 3 + 4 + 7 + 1 + 20
 MEM_BPS = 3.35e12              # H100 SXM device memory rate, bytes/s
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 F32_FLOPS = 67e12              # H100 SXM f32 rate outside the tensor cores
@@ -80,6 +107,51 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def plane_pair(seed: int = 7):
+    """Cameras and uint8 images of phase 6: a fronto-parallel plane at
+    Z = PLANE_Z textured with band-limited noise (0.04 m texels, 8
+    texels per noise cell, about 10 px in the images), camera 0 at the
+    origin, camera 1 centred at (10, 0, 0) and turned by yaw and roll."""
+    import cv2
+    from icepy4d_tpu_torch.core import Camera
+
+    f = 6000.0
+    K = np.array([[f, 0, W_IMG / 2], [0, f, H_IMG / 2], [0, 0, 1]],
+                 np.float32)
+    yaw, roll = np.deg2rad(1.0), np.deg2rad(0.5)
+    Ry = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                   [-np.sin(yaw), 0, np.cos(yaw)]])
+    Rz = np.array([[np.cos(roll), -np.sin(roll), 0],
+                   [np.sin(roll), np.cos(roll), 0], [0, 0, 1]])
+    E0 = np.eye(4, dtype=np.float32)
+    E1 = np.eye(4, dtype=np.float32)
+    E1[:3, :3] = Rz @ Ry
+    E1[:3, 3] = -E1[:3, :3] @ np.array([10.0, 0.0, 0.0], np.float32)
+    x0, y0, res = -120.0, -80.0, 0.04           # texture origin, m per texel
+    rng = np.random.default_rng(seed)
+    tw, th = int(260 / res), int(160 / res)
+    lo = rng.uniform(size=(th // 8 + 1, tw // 8 + 1)).astype(np.float32)
+    tex = cv2.resize(lo, (tw, th), interpolation=cv2.INTER_CUBIC)
+    ys, xs = np.mgrid[0:H_IMG, 0:W_IMG].astype(np.float32)
+
+    def render(E):
+        R = E[:3, :3]
+        C = -R.T @ E[:3, 3]
+        rays = [((xs - K[0, 2]) / f), ((ys - K[1, 2]) / f)]
+        world = [rays[0] * R[0, j] + rays[1] * R[1, j] + R[2, j]
+                 for j in range(3)]                     # R^T @ ray
+        s = (PLANE_Z - C[2]) / world[2]
+        u = (C[0] + s * world[0] - x0) / res
+        v = (C[1] + s * world[1] - y0) / res
+        img = cv2.remap(tex, u.astype(np.float32), v.astype(np.float32),
+                        cv2.INTER_LINEAR)
+        return np.clip(img * 255, 0, 255).astype(np.uint8)
+
+    cams = [Camera.create(width=W_IMG, height=H_IMG, K=K, extrinsics=E)
+            for E in (E0, E1)]
+    return cams, [render(E0), render(E1)]
 
 
 def shifted_pair(seed: int = 21):
@@ -142,6 +214,54 @@ def check_attention(attention, dev, b, h, nq, nk) -> float:
     return err
 
 
+def check_sweep(dense, I0, I1, lo, hi, n, window, label) -> float:
+    """Sweep kernel vs plain on CUDA tensors; returns the largest cost
+    error. Cost within 1e-5 and inbounds equal on every pixel; disparity
+    and uniqueness within 5e-3 on every pixel that is not a near tie, and
+    disparity on at least 99.99% of all pixels."""
+    got = dense.disparity_sweep(I0, I1, lo, hi, n_disp=n, window=window)
+    ref = dense.disparity_sweep_plain(I0, I1, lo, hi,
+                                      dense._pad_bucket(lo, hi),
+                                      n_disp=n, window=window)
+    tie = dense.runner_up_gap(I0, I1, lo, hi, n_disp=n,
+                              window=window) <= TIE
+    torch.cuda.synchronize()
+    cost_err = (got["cost"] - ref["cost"]).abs().max().item()
+    inb_diff = (got["inbounds"] != ref["inbounds"]).sum().item()
+    bad = {k: ((got[k] - ref[k]).abs() > 5e-3) for k in ("disparity",
+                                                         "uniqueness")}
+    off_tie = {k: (v & ~tie).sum().item() for k, v in bad.items()}
+    disp_share = 1.0 - bad["disparity"].float().mean().item()
+    bitwise = (got["cost"] == ref["cost"]).float().mean().item()
+    log(f"  sweep {label} {tuple(I0.shape)} [{lo:.3f}, {hi:.3f}] n={n} "
+        f"w={window}: cost max err {cost_err:.3e} (bitwise on "
+        f"{bitwise:.6f}), inbounds differ {inb_diff}, near ties "
+        f"{tie.float().mean().item():.3e}, off-tie pixels over 5e-3 "
+        f"{off_tie}, disparity within 5e-3 on {disp_share:.6f}")
+    if not cost_err <= 1e-5 or inb_diff:
+        raise AssertionError(f"sweep kernel vs plain: cost {cost_err}, "
+                             f"{inb_diff} inbounds differ")
+    if any(off_tie.values()) or disp_share < 0.9999:
+        raise AssertionError(f"sweep kernel vs plain: {off_tie} off-tie "
+                             f"pixels, disparity share {disp_share}")
+    return cost_err
+
+
+def sweep_inputs(dev, h, w, shift, seed=0):
+    """Smooth noise and its copy shifted by `shift` px along x."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(size=(h // 4 + 2, (w + 64) // 4 + 2)).astype(np.float32)
+    base = cv2.resize(lo, (w + 64, h), interpolation=cv2.INTER_CUBIC)
+    xs = np.arange(w) - shift + 32
+    x0 = np.floor(xs).astype(int)
+    f = (xs - x0).astype(np.float32)
+    I1 = base[:, x0] * (1 - f) + base[:, x0 + 1] * f
+    return (torch.from_numpy(np.ascontiguousarray(base[:, 32:32 + w])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(I1)).to(dev))
+
+
 def main() -> None:
     # -- 1. card ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -150,8 +270,21 @@ def main() -> None:
     from icepy4d_tpu_torch.matching import (GeometricVerification,
                                             LightGlueMatcher, Quality,
                                             TileSelection)
+    from icepy4d_tpu_torch.io import read_ply, write_ply
     from icepy4d_tpu_torch.models import LightGlue
-    from icepy4d_tpu_torch.ops import _build, attention, nms
+    from icepy4d_tpu_torch.ops import _build, attention, dense, nms, sweep
+    from icepy4d_tpu_torch.sfm import PlaneSweepStereo
+    from icepy4d_tpu_torch.sfm import dense as sfm_dense
+
+    kernels_used = {"nms": nms.KERNEL, "attention": attention.KERNEL,
+                    "sweep": sweep.KERNEL}
+
+    def reset_counts():
+        for k in kernels_used.values():
+            k.launches = 0
+
+    def read_counts():
+        return {name: k.launches for name, k in kernels_used.items()}
 
     # Matmuls in full f32 (PyTorch's default): phase 5's f32 trunk is
     # compared in f32. No comparison here runs a convolution, so cuDNN
@@ -165,7 +298,7 @@ def main() -> None:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build_all([nms.KERNEL.source, attention.KERNEL.source])
+    _build.build_all([k.source for k in kernels_used.values()])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for src, text in _build.build_logs.items():
         for line in text.splitlines():
@@ -182,8 +315,14 @@ def main() -> None:
     check_attention(attention, dev, 2, 4, 200, 33)
     att_shape = (16, 4, 4096, 4096)      # the main path's tile-pair batch
     att_err = check_attention(attention, dev, *att_shape)
+    check_sweep(dense, *sweep_inputs(dev, 67, 45, 2.3), -6.0, 6.0, 25, 5,
+                "small")
+    check_sweep(dense, *sweep_inputs(dev, 161, 203, 5.3), -12.0, 12.0, 49,
+                7, "symmetric")
+    check_sweep(dense, *sweep_inputs(dev, 161, 203, -9.6), -20.0, -4.0, 49,
+                7, "negative")
 
-    # -- 4. main path --------------------------------------------------------
+    # -- 4. matcher path -------------------------------------------------------
     img0, img1 = shifted_pair()
     matcher = LightGlueMatcher({"max_keypoints": 4096})
     captured = []
@@ -201,23 +340,20 @@ def main() -> None:
     times = {}
     for run in ("cold", "warm"):
         captured.clear()
-        if run == "warm":
-            nms.KERNEL.launches = 0
-            attention.KERNEL.launches = 0
         torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
         matcher.match(img0, img1, **call)
         torch.cuda.synchronize()
         times[run] = time.perf_counter() - t0
-    launches = {"nms": nms.KERNEL.launches,
-                "attention": attention.KERNEL.launches}
+        launches = read_counts()
     stages = dict(matcher.timer.times)
     n_put = len(matcher.inlier_mask)
     n_inl = len(matcher.mkpts0)
     err = np.linalg.norm(matcher.mkpts0 - matcher.mkpts1 - [DX, DY], axis=1)
     precision = float((err < 1.5).mean()) if n_inl else 0.0
     n_layers = matcher.matcher.n_layers
-    log(f"main path: {W_IMG}x{H_IMG} pair, cold {times['cold']:.3f} s, "
+    log(f"matcher path: {W_IMG}x{H_IMG} pair, cold {times['cold']:.3f} s, "
         f"warm {times['warm']:.3f} s, stages {stages}")
     log(f"  putative {n_put}, inliers {n_inl}, ground-truth precision "
         f"{precision:.4f}, pair chunks {len(captured)}, launches {launches}")
@@ -271,7 +407,72 @@ def main() -> None:
         raise AssertionError(f"bf16-trunk match agreement {agree['bf16']} "
                              f"below the yardstick {yardstick}")
 
-    # -- 6. times --------------------------------------------------------------
+    del data, captured, lg32, matcher
+    torch.cuda.empty_cache()
+
+    # -- 6. dense path ---------------------------------------------------------
+    cams, imgs = plane_pair()
+    pss = PlaneSweepStereo(cams, imgs, depth_min=0.7 * PLANE_Z,
+                           depth_max=1.5 * PLANE_Z, n_planes=128, window=7,
+                           downscale=1, cost_threshold=0.4,
+                           uniqueness_threshold=0.99, lr_check=True,
+                           lr_tau=2.0)
+    sweeps = []                  # (I0r, I1r, lo, hi) of the last run
+    run_sweep = sfm_dense.disparity_sweep
+
+    def capture_sweep(I0r, I1r, lo, hi, **kw):
+        sweeps.append((I0r, I1r, lo, hi))
+        return run_sweep(I0r, I1r, lo, hi, **kw)
+
+    sfm_dense.disparity_sweep = capture_sweep
+    dense_times = {}
+    for run in ("cold", "warm"):
+        sweeps.clear()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = pss.run()
+        torch.cuda.synchronize()
+        dense_times[run] = time.perf_counter() - t0
+        dense_launches = read_counts()
+    sfm_dense.disparity_sweep = run_sweep
+    dense_stages = dict(pss.timer.times)
+    h, w = res["depth"].shape
+    inner = (slice(h // 10, h - h // 10), slice(w // 6, w - w // 10))
+    valid_inner = float(res["valid"][inner].mean())
+    depth_err = float(np.median(np.abs(res["depth"][res["valid"]] - PLANE_Z))
+                      / PLANE_Z)
+    pts, colors = pss.to_point_cloud()
+    z_err = float(np.median(np.abs(pts[:, 2] - PLANE_Z)))
+    with tempfile.TemporaryDirectory() as tmp:
+        write_ply(Path(tmp) / "dense.ply", pts, colors)
+        back, _ = read_ply(Path(tmp) / "dense.ply")
+    log(f"dense path: {W_IMG}x{H_IMG} pair, cold {dense_times['cold']:.3f} "
+        f"s, warm {dense_times['warm']:.3f} s, stages {dense_stages}")
+    log(f"  valid {float(res['valid'].mean()):.4f} (inner {valid_inner:.4f}), "
+        f"median |depth - Z| / Z {depth_err:.3e}, cloud {len(pts)} points, "
+        f"median |Z - {PLANE_Z:g}| {z_err:.4f} m, launches {dense_launches}")
+    if dense_launches["sweep"] != 2:
+        raise AssertionError(f"sweep kernel launched "
+                             f"{dense_launches['sweep']} times in a run")
+    if not valid_inner >= 0.5:
+        raise AssertionError(f"inner valid share {valid_inner} < 0.5")
+    if not depth_err < 5e-3:
+        raise AssertionError(f"median relative depth error {depth_err}")
+    if not (len(pts) and z_err < 1.0):
+        raise AssertionError(f"point cloud median |Z - Z0| {z_err}")
+    if not np.array_equal(back, pts.astype(np.float32)):
+        raise AssertionError("PLY read back differs from the cloud")
+    sweep_shape = tuple(sweeps[0][0].shape)
+    sweep_err = 0.0
+    for (I0r, I1r, lo, hi), label in zip(sweeps, ("forward", "reverse")):
+        sweep_err = max(sweep_err, check_sweep(
+            dense, I0r, I1r, lo, hi, 128, 7, label))
+    I0r, I1r, lo, hi = sweeps[0]
+    del pss, res, pts, colors, back, cams, imgs
+    torch.cuda.empty_cache()
+
+    # -- 7. times --------------------------------------------------------------
     heat = heat_map(nms_shape, dev)
     b, hh, ww = nms_shape
     args = (4, 4, hh, ww)
@@ -296,6 +497,15 @@ def main() -> None:
         + B * H * NQ * (64 + 1) * 4
     att_bound, att_by = lower_bound(att_bytes, att_flops, BF16_FLOPS)
 
+    sweep_ms = cuda_ms(lambda: dense.disparity_sweep(
+        I0r, I1r, lo, hi, n_disp=128, window=7), 10)
+    sweep_plain_ms = cuda_ms(lambda: dense.disparity_sweep_plain(
+        I0r, I1r, lo, hi, dense._pad_bucket(lo, hi), n_disp=128, window=7), 2)
+    px = sweep_shape[0] * sweep_shape[1]
+    # two f32 planes in; disparity, cost, uniqueness f32 and inbounds bool out
+    sweep_bound, sweep_by = lower_bound(px * (2 * 4 + 3 * 4 + 1),
+                                        px * 128 * SWEEP_OPS, F32_FLOPS)
+
     kernels = [
         {"name": "fused_nms_border", "route": "cuda",
          "source": "icepy4d_tpu_torch/csrc/nms.cu",
@@ -309,11 +519,22 @@ def main() -> None:
          "launches": launches["attention"], "max_abs_err": att_err,
          "ms": att_ms, "plain_ms": att_plain_ms, "bound_ms": att_bound,
          "bound_by": att_by, "library_ms": sdpa_ms},
+        {"name": "disparity_sweep", "route": "cuda",
+         "source": "icepy4d_tpu_torch/csrc/sweep.cu",
+         "replaces": "icepy4d_tpu/ops/pallas_sweep.py:196",
+         "launches": dense_launches["sweep"], "max_abs_err": sweep_err,
+         "ms": sweep_ms, "plain_ms": sweep_plain_ms, "bound_ms": sweep_bound,
+         "bound_by": sweep_by, "library_ms": None},
     ]
     log(json.dumps({"main_path": {
         "warm_s": times["warm"], "cold_s": times["cold"], "stages_s": stages,
         "putative": n_put, "inliers": n_inl, "precision": precision,
-        "lightglue_agreement": agree, "agreement_yardstick": yardstick}}))
+        "lightglue_agreement": agree, "agreement_yardstick": yardstick},
+        "dense_path": {
+            "warm_s": dense_times["warm"], "cold_s": dense_times["cold"],
+            "stages_s": dense_stages, "valid_inner": valid_inner,
+            "median_rel_depth_err": depth_err, "median_abs_z_err_m": z_err,
+            "sweep_shape": sweep_shape}}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ library with a plain C interface, at first use, into `_build/` (listed
 in .gitignore), and loaded with ctypes. A library's file name carries a
 hash of its source and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. `build_all` starts one `nvcc` per
-source at once.
+source at once. `SOURCE_FLAGS` adds flags for one source.
 
 Every C entry takes its pointers and PyTorch's current stream as
 `void*`, launches without synchronising, and returns
@@ -29,6 +29,9 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the sweep's costs must round as its plain version's do: no a * b + c
+# may be contracted into an FMA
+SOURCE_FLAGS = {"sweep.cu": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -47,8 +50,12 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(source: str) -> list[str]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, [])
+
+
 def _lib_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = (CSRC / source).read_bytes() + " ".join(_flags(source)).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
@@ -65,7 +72,7 @@ def build_all(sources) -> None:
         for src in todo:
             out = _lib_path(src)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+            cmd = [nvcc, *_flags(src), "-o", str(tmp), str(CSRC / src)]
             procs.append((src, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

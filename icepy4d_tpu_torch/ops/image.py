@@ -1,8 +1,9 @@
-"""Image ops: grayscale, pyramids, quality resize, tiling, bilinear sampling.
+"""Image ops: grayscale, pyramids, resize, tiling, bilinear sampling,
+homography warps and undistortion.
 
-Counterpart of `icepy4d_tpu/ops/image.py` (its lines 35-190). The
-homography warp and undistortion helpers are ported with the geometry
-slice.
+Counterpart of `icepy4d_tpu/ops/image.py`. Pixel grids are mapped by
+3x3 matrices elementwise (`map_homography`), never by a matmul, so that
+no TF32 setting can move a coordinate near 6000 px by whole pixels.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from icepy4d_tpu_torch.ops.geometry import distort_normalized
 
 # ITU-R BT.601 luma weights, as cv2.cvtColor(..., COLOR_RGB2GRAY)
 _LUMA = (0.299, 0.587, 0.114)
@@ -131,3 +134,76 @@ def bilinear_sample(image: torch.Tensor, xy: torch.Tensor,
            + tap(x0i, y0i + 1) * (1 - fx) * fy
            + tap(x0i + 1, y0i + 1) * fx * fy)
     return out[..., 0] if squeeze else out
+
+
+def resize(image: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of (H, W[, C]) to `shape` = (h, w).
+
+    Antialiased when it shrinks, as `jax.image.resize(..., "bilinear")`
+    is (half-pixel centres, a triangle kernel widened by the scale).
+    """
+    img = image.to(torch.float32)
+    squeeze = img.ndim == 2
+    x = img[None, None] if squeeze else img.permute(2, 0, 1)[None]
+    out = F.interpolate(x, size=tuple(shape), mode="bilinear",
+                        align_corners=False, antialias=True)[0]
+    return out[0] if squeeze else out.permute(1, 2, 0)
+
+
+def _pixel_grid(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(xs, ys): the (h, w) float32 column and row index of every pixel."""
+    ys, xs = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=device),
+        torch.arange(w, dtype=torch.float32, device=device), indexing="ij")
+    return xs, ys
+
+
+def map_homography(M, xs: torch.Tensor, ys: torch.Tensor):
+    """M @ [x, y, 1] for every pixel, elementwise: (qx, qy, qz).
+
+    M is a 3x3 host array; its entries enter as float32 scalars.
+    """
+    M = np.asarray(M, np.float32)
+    return tuple(xs * float(M[i, 0]) + ys * float(M[i, 1]) + float(M[i, 2])
+                 for i in range(3))
+
+
+def warp_homography(image: torch.Tensor, H, out_h: int,
+                    out_w: int) -> torch.Tensor:
+    """Inverse-map homography warp (cv2.warpPerspective semantics):
+    out(x) = image(H^-1 x), zero outside. H: 3x3 host array."""
+    Hinv = np.linalg.inv(np.asarray(H, np.float32))
+    xs, ys = _pixel_grid(out_h, out_w, image.device)
+    sx, sy, sz = map_homography(Hinv, xs, ys)
+    den = torch.clamp_min(sz.abs(), 1e-12)
+    sign = torch.sign(sz)
+    src = torch.stack([sx / den * sign, sy / den * sign], -1)
+    out = bilinear_sample(image, src.reshape(-1, 2))
+    return out.reshape((out_h, out_w) + tuple(image.shape[2:]))
+
+
+def undistort_image(image: torch.Tensor, K, dist) -> torch.Tensor:
+    """Remove lens distortion (cv2.undistort semantics, same K on output).
+
+    For each output pixel: normalise with K^-1, apply the FORWARD
+    distortion, re-project with K, sample the distorted source there.
+    K: 3x3 host array; dist: OpenCV coefficients (up to 8).
+    """
+    h, w = image.shape[:2]
+    K = np.asarray(K, np.float32)
+    xs, ys = _pixel_grid(h, w, image.device)
+    xn, yn, _ = map_homography(np.linalg.inv(K), xs, ys)
+    xd = distort_normalized(torch.stack([xn, yn], -1), dist)
+    u = xd[..., 0] * float(K[0, 0]) + xd[..., 1] * float(K[0, 1]) \
+        + float(K[0, 2])
+    v = xd[..., 0] * float(K[1, 0]) + xd[..., 1] * float(K[1, 1]) \
+        + float(K[1, 2])
+    out = bilinear_sample(image, torch.stack([u, v], -1).reshape(-1, 2))
+    return out.reshape(image.shape)
+
+
+def make_homography(K0, R0, K1, R1) -> np.ndarray:
+    """Rotation-only homography mapping cam1 pixels into cam0's frame:
+    H = K0 R0 R1^T K1^-1 (float32, host)."""
+    K0, R0, K1, R1 = (np.asarray(a, np.float32) for a in (K0, R0, K1, R1))
+    return K0 @ (R0 @ R1.T) @ np.linalg.inv(K1)

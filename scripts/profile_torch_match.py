@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where a warm full-size match of the PyTorch/CUDA port spends its time.
+"""Where a warm full-size run of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/profile_torch_match.py [--top 25]
+    python3 scripts/profile_torch_match.py [--path match|dense] [--top 25]
 
-Runs `chip_smoke.py`'s main path (synthetic 6012x4008 pair, 2x2
-EXHAUSTIVE tiles, 4096 keypoints per tile, bundled weights, PYDEGENSAC)
-once cold, then once under `torch.profiler` with CPU and CUDA activity.
-Prints the card, the device kernels with the most device time, the
-matcher's stage split, and the device's busy and idle share of the
-warm match's wall time (one stream, so kernels do not overlap and busy
-time is their sum). Needs one CUDA device.
+`--path match` (the default) runs `chip_smoke.py`'s matcher path
+(synthetic 6012x4008 pair, 2x2 EXHAUSTIVE tiles, 4096 keypoints per
+tile, bundled weights, PYDEGENSAC); `--path dense` its dense path
+(PlaneSweepStereo at the pipeline's settings on the synthetic 6012x4008
+plane pair). Each runs once cold, then once under `torch.profiler` with
+CPU and CUDA activity. Prints the card, the device kernels with the most
+device time, the run's stage split, and the device's busy and idle share
+of the warm run's wall time (one stream, so kernels do not overlap and
+busy time is their sum). Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -26,8 +28,37 @@ from torch.profiler import ProfilerActivity, profile
 REPO = Path(__file__).resolve().parents[1]
 
 
+def matcher_run(chip_smoke):
+    """(warm-run callable, object whose .timer holds the stage split)."""
+    from icepy4d_tpu_torch.matching import (GeometricVerification,
+                                            LightGlueMatcher, Quality,
+                                            TileSelection)
+
+    img0, img1 = chip_smoke.shifted_pair()
+    matcher = LightGlueMatcher({"max_keypoints": 4096})
+    call = dict(quality=Quality.HIGH, tile_selection=TileSelection.EXHAUSTIVE,
+                grid=[2, 2], overlap=200,
+                geometric_verification=GeometricVerification.PYDEGENSAC,
+                threshold=1.0)
+    return (lambda: matcher.match(img0, img1, **call)), matcher
+
+
+def dense_run(chip_smoke):
+    from icepy4d_tpu_torch.sfm import PlaneSweepStereo
+
+    cams, imgs = chip_smoke.plane_pair()
+    z = chip_smoke.PLANE_Z
+    pss = PlaneSweepStereo(cams, imgs, depth_min=0.7 * z, depth_max=1.5 * z,
+                           n_planes=128, window=7, downscale=1,
+                           cost_threshold=0.4, uniqueness_threshold=0.99,
+                           lr_check=True, lr_tau=2.0)
+    return pss.run, pss
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("match", "dense"), default="match",
+                    help="which of chip_smoke.py's paths to profile")
     ap.add_argument("--top", type=int, default=25,
                     help="device kernels to list")
     args = ap.parse_args()
@@ -35,24 +66,17 @@ def main() -> None:
         sys.exit("profile_torch_match: no CUDA device")
     sys.path.insert(0, str(REPO))
     import chip_smoke
-    from icepy4d_tpu_torch.matching import (GeometricVerification,
-                                            LightGlueMatcher, Quality,
-                                            TileSelection)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    img0, img1 = chip_smoke.shifted_pair()
-    matcher = LightGlueMatcher({"max_keypoints": 4096})
-    call = dict(quality=Quality.HIGH, tile_selection=TileSelection.EXHAUSTIVE,
-                grid=[2, 2], overlap=200,
-                geometric_verification=GeometricVerification.PYDEGENSAC,
-                threshold=1.0)
-    matcher.match(img0, img1, **call)          # cold: builds, cuDNN plans
+    make = matcher_run if args.path == "match" else dense_run
+    run, owner = make(chip_smoke)
+    run()                                      # cold: builds, cuDNN plans
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
-        matcher.match(img0, img1, **call)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -61,7 +85,7 @@ def main() -> None:
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_us = sum(e.self_device_time_total for e in kernels)
     print(chip_smoke.card_line())
-    print(f"warm match wall {wall:.4f} s, stages {matcher.timer.times}")
+    print(f"warm {args.path} wall {wall:.4f} s, stages {owner.timer.times}")
     print(f"{'device ms':>10} {'calls':>6}  kernel")
     for e in kernels[:args.top]:
         print(f"{e.self_device_time_total / 1e3:10.3f} {e.count:6d}  "
@@ -76,9 +100,9 @@ def main() -> None:
         print(f"{e.self_device_time_total / 1e3:10.3f} {e.count:6d}  "
               f"{e.key} {str(e.input_shapes)[:100]}")
     print(json.dumps({
-        "wall_s": wall, "device_busy_s": busy_us / 1e6,
+        "path": args.path, "wall_s": wall, "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-        "stages_s": matcher.timer.times,
+        "stages_s": owner.timer.times,
         "kernels_listed_share": sum(e.self_device_time_total
                                     for e in kernels[:args.top]) / busy_us,
     }))

@@ -59,10 +59,14 @@ def test_default_device_raises_without_cuda(no_cuda):
     from icepy4d_tpu_torch.matching import (LightGlueMatcher,
                                             geometric_verification)
     from icepy4d_tpu_torch.models import LightGlue, SuperPoint
+    from icepy4d_tpu_torch.sfm import PlaneSweepStereo
 
     for make in (LightGlueMatcher, SuperPoint, LightGlue):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+    img = np.zeros((16, 16), np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PlaneSweepStereo([None, None], [img, img], 1.0, 2.0)
     x = np.random.default_rng(0).uniform(0, 100, (20, 2)).astype(np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         geometric_verification(x, x + 1.0)
@@ -70,7 +74,7 @@ def test_default_device_raises_without_cuda(no_cuda):
 
 def test_cuda_tensor_without_card_raises_not_falls_back(no_cuda):
     """The dispatch takes the plain version only for CPU tensors."""
-    from icepy4d_tpu_torch.ops import attention, nms
+    from icepy4d_tpu_torch.ops import attention, dense, nms
 
     meta = torch.zeros((1, 4, 8, 64), device="meta")
     with pytest.raises(ValueError):
@@ -80,3 +84,6 @@ def test_cuda_tensor_without_card_raises_not_falls_back(no_cuda):
     with pytest.raises(ValueError):
         nms.fused_nms_border(torch.zeros((1, 8, 8), device="meta"),
                              4, 4, 8, 8)
+    rect = torch.zeros((8, 8), device="meta")
+    with pytest.raises(ValueError):
+        dense.disparity_sweep(rect, rect, 0.0, 4.0, n_disp=5)

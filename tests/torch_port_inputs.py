@@ -131,3 +131,77 @@ def sampson_np(F, x0, x1):
 def jaccard(a, b) -> float:
     a, b = np.asarray(a, bool), np.asarray(b, bool)
     return float((a & b).sum() / max((a | b).sum(), 1))
+
+
+def sweep_pair(h: int, w: int, seed: int = 0, shift: float = 5.3):
+    """Smooth noise I0 and I1(x) = I0(x - shift): under the sweep's
+    convention I0(x) = I1(x - d) the true disparity is d = -shift."""
+    import scipy.ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    base = ndi.gaussian_filter(
+        rng.uniform(size=(h, w + 40)).astype(np.float32), 2.0)
+    xs = np.arange(w) - shift + 20
+    x0 = np.floor(xs).astype(int)
+    f = xs - x0
+    I1 = base[:, x0] * (1 - f) + base[:, x0 + 1] * f
+    return (np.ascontiguousarray(base[:, 20:20 + w]),
+            np.ascontiguousarray(I1.astype(np.float32)))
+
+
+def plane_texture(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """Band-limited texture of (2h, 2w) in [0, 1], three noise scales."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((h * 2, w * 2), np.float32)
+    for cell in (6, 12, 24):
+        lo = rng.uniform(size=(h * 2 // cell + 1, w * 2 // cell + 1))
+        img += cv2.resize(lo.astype(np.float32), (w * 2, h * 2),
+                          interpolation=cv2.INTER_CUBIC)
+    img -= img.min()
+    return img / img.max()
+
+
+def render_plane(tex: np.ndarray, K: np.ndarray, E: np.ndarray, Z: float,
+                 h: int, w: int) -> np.ndarray:
+    """The view of camera (K, E) of a fronto-parallel plane Z whose
+    albedo is `tex`, spread over world X in [-3, 3] and Y in [-2.5, 2.5],
+    rendered with cv2.remap."""
+    ys, xs = np.mgrid[0:h, 0:w]
+    R = E[:3, :3]
+    C = -R.T @ E[:3, 3]
+    rays = np.stack([(xs - K[0, 2]) / K[0, 0], (ys - K[1, 2]) / K[1, 1],
+                     np.ones_like(xs, np.float32)], -1) @ R
+    s = (Z - C[2]) / rays[..., 2]
+    X = C + s[..., None] * rays
+    th, tw = tex.shape
+    u = (X[..., 0] + 3.0) / 6.0 * (tw - 1)
+    v = (X[..., 1] + 2.5) / 5.0 * (th - 1)
+    return cv2.remap(tex, u.astype(np.float32), v.astype(np.float32),
+                     cv2.INTER_LINEAR)
+
+
+def rotation_zyx(yaw: float, pitch: float, roll: float) -> np.ndarray:
+    """R = Rz(roll) @ Ry(yaw) @ Rx(pitch), angles in radians."""
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    cr, sr = np.cos(roll), np.sin(roll)
+    Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    Rx = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+    Rz = np.array([[cr, -sr, 0], [sr, cr, 0], [0, 0, 1]])
+    return (Rz @ Ry @ Rx).astype(np.float32)
+
+
+def stereo_rig(h: int, w: int, f: float, baseline: float, Z: float,
+               yaw: float = 0.0, roll: float = 0.0, seed: int = 0):
+    """Two cameras looking down +Z at a textured plane Z: camera 0 at the
+    origin, camera 1 centred at (baseline, 0, 0), turned by yaw and roll.
+    Returns (K, E0, E1, I0, I1) with float32 images in [0, 1]."""
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    E0 = np.eye(4, dtype=np.float32)
+    E1 = np.eye(4, dtype=np.float32)
+    R1 = rotation_zyx(yaw, 0.0, roll)
+    E1[:3, :3] = R1
+    E1[:3, 3] = -R1 @ np.array([baseline, 0.0, 0.0], np.float32)
+    tex = plane_texture(h, w, seed)
+    return (K, E0, E1, render_plane(tex, K, E0, Z, h, w),
+            render_plane(tex, K, E1, Z, h, w))

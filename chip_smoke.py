@@ -13,8 +13,11 @@ anything in it fails:
 3. kernel vs plain: each kernel against its plain PyTorch version, at
    small odd shapes and at the main path's shapes (NMS bitwise equal;
    attention within 2e-3 of the plain bf16 version, relative to the
-   output's largest magnitude; the disparity sweep at (67, 45) with
-   window 5, (161, 203) over [-12, 12] and over [-20, -4]: cost within
+   output's largest magnitude, also at key and query counts around its
+   128-wide tiles, with padding masks, a run of fully masked tiles and
+   strided head views; the disparity sweep at (67, 45) with window 5,
+   (161, 203) over [-12, 12] and over [-20, -4], at sizes off its tile
+   and at every window it is built for: cost within
    1e-5 and inbounds equal on every pixel, disparity and uniqueness
    within 5e-3 on every pixel that is not a near tie, i.e. whose best
    and runner-up plain costs are more than 1e-5 apart, and disparity on
@@ -196,18 +199,42 @@ def check_nms(nms, dev, shape, r=4, border=4) -> float:
     return 0.0
 
 
-def check_attention(attention, dev, b, h, nq, nk) -> float:
+def attention_mask(mode: str, b: int, nk: int, dev) -> torch.Tensor:
+    """prefix: each batch row keeps its first 1..nk keys (padding after);
+    middle: keys nk/4 .. 3nk/4 masked, a run of whole tiles at nk >= 512."""
+    if mode == "prefix":
+        g = torch.Generator(device=dev).manual_seed(nk)
+        n_valid = torch.randint(1, nk + 1, (b, 1), generator=g, device=dev)
+        return torch.arange(nk, device=dev)[None] < n_valid
+    mask = torch.ones((b, nk), dtype=torch.bool, device=dev)
+    mask[:, nk // 4: 3 * nk // 4] = False
+    return mask
+
+
+def check_attention(attention, dev, b, h, nq, nk, mode="rand",
+                    head_views=False) -> float:
+    """Attention kernel vs plain bf16 on f32 inputs; the last batch row
+    is fully masked. `head_views` passes q, k, v as (B, H, N, hd) views
+    of (B, N, H, hd) storage, as LightGlue's blocks do."""
     q, k, v, mask = attention_inputs(b, h, nq, nk, dev)
+    if mode != "rand":
+        mask = attention_mask(mode, b, nk, dev)
     mask[-1] = False                             # one fully masked row
+    if head_views:
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
     got = attention.masked_attention(q, k, v, mask)
     ref = attention.attention_plain(q, k, v, mask,
                                     operand_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     if torch.count_nonzero(got[-1]).item() != 0:
         raise AssertionError("fully masked row did not give zeros")
+    if not torch.isfinite(got).all().item():
+        raise AssertionError("attention output is not finite")
     err = (got[:-1] - ref[:-1]).abs().max().item()
     rel = err / ref[:-1].abs().max().item()
-    log(f"  attention B={b} H={h} Nq={nq} Nk={nk}: max abs err {err:.3e}, "
+    log(f"  attention B={b} H={h} Nq={nq} Nk={nk} {mode}"
+        f"{' head views' if head_views else ''}: max abs err {err:.3e}, "
         f"relative {rel:.3e}")
     if not rel <= 2e-3:
         raise AssertionError(f"attention kernel vs plain bf16: {rel}")
@@ -313,6 +340,16 @@ def main() -> None:
     nms_err = check_nms(nms, dev, nms_shape)
     check_attention(attention, dev, 3, 4, 77, 130)
     check_attention(attention, dev, 2, 4, 200, 33)
+    # key and query tails around the kernel's 128-wide tiles, padding
+    # masks, a run of fully masked tiles, strided head views
+    for nk in (1, 63, 64, 65, 127, 128, 129, 4 * 128 + 5):
+        check_attention(attention, dev, 3, 2, 129, nk)
+    for nq in (1, 127, 129, 200):
+        check_attention(attention, dev, 3, 2, nq, 300, mode="prefix")
+    for mode in ("prefix", "middle"):
+        for head_views in (False, True):
+            check_attention(attention, dev, 3, 4, 256, 1024, mode=mode,
+                            head_views=head_views)
     att_shape = (16, 4, 4096, 4096)      # the main path's tile-pair batch
     att_err = check_attention(attention, dev, *att_shape)
     check_sweep(dense, *sweep_inputs(dev, 67, 45, 2.3), -6.0, 6.0, 25, 5,
@@ -321,6 +358,14 @@ def main() -> None:
                 7, "symmetric")
     check_sweep(dense, *sweep_inputs(dev, 161, 203, -9.6), -20.0, -4.0, 49,
                 7, "negative")
+    # heights and widths off the kernel's 16 x (128 - (window - 1)) tile,
+    # a height below one tile, and every window it is built for
+    for hw in ((9, 300), (17, 123), (33, 121), (15, 7)):
+        check_sweep(dense, *sweep_inputs(dev, *hw, 3.2), -9.7, 3.1, 33, 7,
+                    "off-tile")
+    for window in sweep.WINDOWS:
+        check_sweep(dense, *sweep_inputs(dev, 50, 261, 4.4), -9.0, 9.0, 19,
+                    window, "window")
 
     # -- 4. matcher path -------------------------------------------------------
     img0, img1 = shifted_pair()

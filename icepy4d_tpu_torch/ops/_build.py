@@ -29,9 +29,14 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# the sweep's costs must round as its plain version's do: no a * b + c
-# may be contracted into an FMA
-SOURCE_FLAGS = {"sweep.cu": ["-fmad=false"]}
+SOURCE_FLAGS = {
+    # the sweep's costs must round as its plain version's do: no a * b + c
+    # may be contracted into an FMA
+    "sweep.cu": ["-fmad=false"],
+    # the attention entry looks libcuda's cuTensorMapEncodeTiled up
+    # with dlopen/dlsym (no link against libcuda)
+    "attention.cu": ["-ldl"],
+}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

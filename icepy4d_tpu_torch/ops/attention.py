@@ -2,23 +2,32 @@
 CUDA kernel and its plain PyTorch version.
 
 The kernel (`csrc/attention.cu`) replaces the Pallas kernel
-`icepy4d_tpu/ops/attention.py::flash_attention`. Its contract is the
-TPU kernel's: bf16 operands with f32 sums, q pre-scaled by
-hd^-0.5 * log2(e), exp2 after subtracting the row max, key masking by
-multiplying with the 0/1 mask, and `pv / max(den, 1e-20)` outside the
-kernel, so a query row whose keys are all masked gives zeros. Two
-differences from the TPU kernel, both explained in csrc/attention.cu:
-the offset subtracted is the row max rounded up to an integer, and the
-max runs over the unmasked keys only (over all keys, the denominator
-falls under the clamp where a masked key's logit exceeds every valid
-one by more than ~66 in log2 units).
+`icepy4d_tpu/ops/attention.py::flash_attention`. It computes what the
+TPU kernel computes: bf16 operands with f32 sums, q scaled by
+hd^-0.5 * log2(e), exp2 after subtracting a row offset, masked keys
+dropped, and `pv / max(den, 1e-20)`, so a query row whose keys are all
+masked gives zeros. Two differences from the TPU kernel, both explained
+in csrc/attention.cu: the offset subtracted is the row max rounded up to
+an integer, and the max runs over the unmasked keys only (over all keys,
+the denominator falls under the clamp where a masked key's logit exceeds
+every valid one by more than ~66 in log2 units).
+
+On this card the function is bound by the tensor cores and then by the
+exponentials. The kernel is built for Hopper: a producer warp keeps TMA
+loads of 128-key K and V tiles in flight through a ring of buffers, two
+consumer warpgroups of 64 query rows each run both products as `wgmma`
+and an online softmax between them, and the scaling of q, the mask (as
+the bool tensor it is) and the final division are inside the kernel.
+The tensor maps carry the tensors' own strides, so LightGlue's
+(B, N, H, hd) head views go in without a copy; the output comes back in
+that layout too (shape (B, H, Nq, hd), heads strided), which is what the
+blocks reshape next.
 
 `masked_attention` is the dispatch: a CPU tensor runs the plain version
 in f32 (what the JAX package computes on the CPU for every row with at
 least one valid key), a CUDA tensor launches the kernel (and raises if
-it cannot). The kernel keeps 27.9 KB of shared memory per block whatever
-the number of keys, so every (B, H, Nq, Nk) with hd = 64 dispatches to
-it; other head dims raise.
+it cannot). Every (B, H, Nq, Nk) with hd = 64 dispatches to it; other
+head dims raise.
 """
 
 from __future__ import annotations
@@ -32,8 +41,10 @@ from icepy4d_tpu_torch.ops._build import CudaKernel
 
 KERNEL = CudaKernel("attention.cu", "masked_attention_fwd", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # kmask, pv, den
+    ctypes.c_void_p, ctypes.c_void_p,                    # kmask, out
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, Nq, Nk
+    *[ctypes.c_longlong] * 12,   # (batch, head, row) strides of q, k, v, out
+    ctypes.c_float, ctypes.c_int,                        # q_scale, out_f32
 ])
 
 HEAD_DIM = 64   # the head dim csrc/attention.cu is compiled for
@@ -68,29 +79,72 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (pv / den.clamp_min(1e-20)).to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    kmask: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel. Shapes as `attention_plain`; hd must be 64."""
-    b, h, nq, hd = q.shape
-    nk = k.shape[2]
-    if hd != HEAD_DIM:
-        raise ValueError(f"the attention kernel takes hd={HEAD_DIM}, got {hd}")
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           kmask: torch.Tensor) -> None:
+    """Raise on what the kernel cannot take."""
+    if q.ndim != 4 or q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"the attention kernel takes q (B, H, Nq, "
+                         f"{HEAD_DIM}), got {tuple(q.shape)}")
+    b, h, _, hd = q.shape
+    nk = k.shape[2] if k.ndim == 4 else -1
     if k.shape != (b, h, nk, hd) or v.shape != k.shape \
             or kmask.shape != (b, nk):
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)} kmask {tuple(kmask.shape)}")
-    qb = (q.float() * _prescale(hd)).to(torch.bfloat16).contiguous()
-    kb = k.to(torch.bfloat16).contiguous()
-    vb = v.to(torch.bfloat16).contiguous()
-    mf = kmask.to(torch.float32).contiguous()
-    pv = torch.empty((b, h, nq, hd), dtype=torch.float32, device=q.device)
-    den = torch.empty((b, h, nq, 1), dtype=torch.float32, device=q.device)
-    if pv.numel():
+    if nk < 1:
+        raise ValueError("the attention kernel needs at least one key")
+    devices = {t.device for t in (q, k, v, kmask)}
+    if len(devices) != 1 or q.device.type != "cuda":
+        raise ValueError(f"the attention kernel takes CUDA tensors on one "
+                         f"device, got {sorted(str(d) for d in devices)}")
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """`t` as bf16 that a 16-byte load or a tensor map can address: unit
+    stride in hd, every other stride a positive multiple of 8 elements,
+    base 16-byte aligned. LightGlue's head views already are; anything
+    else is copied."""
+    t = t.to(torch.bfloat16)
+    if t.stride(-1) != 1 or t.data_ptr() % 16 \
+            or any(s <= 0 or s % 8 for s in _strides(t)):
+        t = t.contiguous()
+    return t
+
+
+def _strides(t: torch.Tensor) -> list[int]:
+    """(batch, head, row) strides in elements; a dim of size 1 may carry
+    any stride, so it is given a valid one."""
+    return [s if n > 1 else HEAD_DIM
+            for s, n in zip(t.stride()[:3], t.shape[:3])]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kmask: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel. Shapes as `attention_plain`; hd must be 64.
+    Returns (B, H, Nq, hd) in q's dtype, laid out as (B, Nq, H, hd)."""
+    _check(q, k, v, kmask)
+    b, h, nq, hd = q.shape
+    nk = k.shape[2]
+    out_dtype = q.dtype if q.dtype in (torch.bfloat16, torch.float32) \
+        else torch.float32
+    if q.dtype == torch.bfloat16:
+        qb, q_scale = q, _prescale(hd)      # scaled and rounded in the kernel
+    else:
+        # the product is rounded to bf16 once, from f32, as in the plain
+        # version: one fused pass here, and the kernel's scale is 1
+        qb, q_scale = (q.float() * _prescale(hd)), 1.0
+    qb, kb, vb = _tma_ready(qb), _tma_ready(k), _tma_ready(v)
+    mask = kmask.to(torch.bool).contiguous()
+    out = torch.empty((b, nq, h, hd), dtype=out_dtype,
+                      device=q.device).transpose(1, 2)
+    if out.numel():
         KERNEL.launch(q.device, qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
-                      mf.data_ptr(), pv.data_ptr(), den.data_ptr(),
-                      b, h, nq, nk)
-    return (pv / den.clamp_min(1e-20)).to(q.dtype)
+                      mask.data_ptr(), out.data_ptr(), b, h, nq, nk,
+                      *_strides(qb), *_strides(kb), *_strides(vb),
+                      *_strides(out), q_scale,
+                      int(out_dtype == torch.float32))
+    return out.to(q.dtype)
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

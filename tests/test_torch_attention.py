@@ -1,6 +1,9 @@
 """Port masked attention (plain version of the CUDA kernel) against
 icepy4d_tpu's XLA attention and its Pallas kernel in interpret mode; the
-kernel against its plain bf16 version on a CUDA device.
+kernel against its plain bf16 version on a CUDA device, at the shapes a
+tiled, pipelined kernel gets wrong (key and query tails around its
+128-wide tiles, padding masks, runs of fully masked tiles, strided head
+views); and what the kernel's wrapper rejects, which needs no card.
 
 JAX is imported inside the parity tests only, so the card's tests run
 where JAX is not installed:
@@ -41,6 +44,26 @@ def _t(*arrays, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
+def _mask(mode: str, b: int, nk: int, seed: int = 11) -> np.ndarray:
+    """prefix: each batch row keeps its first 1..nk keys (padding after);
+    middle: keys nk/4 .. 3nk/4 masked, a run of whole tiles at nk >= 512;
+    rand: each key kept with probability 0.7."""
+    rng = np.random.default_rng(seed)
+    if mode == "prefix":
+        return np.arange(nk)[None] < rng.integers(1, nk + 1, (b, 1))
+    if mode == "middle":
+        mask = np.ones((b, nk), bool)
+        mask[:, nk // 4: 3 * nk // 4] = False
+        return mask
+    return rng.uniform(size=(b, nk)) < 0.7
+
+
+def _head_views(*tensors):
+    """(B, H, N, hd) views of (B, N, H, hd) storage, as LightGlue's
+    blocks pass q, k and v."""
+    return [t.transpose(1, 2).contiguous().transpose(1, 2) for t in tensors]
+
+
 def test_plain_f32_equals_xla(ref):
     q, k, v, mask = _inputs(nq=96, nk=200, hd=32)
     got = attention.masked_attention(*_t(q, k, v, mask)).numpy()
@@ -70,6 +93,75 @@ def test_fully_masked_row_gives_zeros(dtype):
     assert torch.count_nonzero(out[0]) > 0
 
 
+@pytest.mark.parametrize("mode", ["prefix", "middle"])
+def test_plain_on_head_views_equals_contiguous_and_xla(ref, mode):
+    q, k, v, _ = _inputs(b=3, nq=72, nk=160)
+    mask = _mask(mode, 3, 160)
+    tq, tk, tv, tm = _t(q, k, v, mask)
+    views = _head_views(tq, tk, tv)
+    assert not any(t.is_contiguous() for t in views)
+    got = attention.masked_attention(*views, tm).numpy()
+    np.testing.assert_allclose(
+        got, attention.masked_attention(tq, tk, tv, tm).numpy(),
+        rtol=1e-5, atol=1e-5)
+    want = np.asarray(ref._xla_attention(*_j(q, k, v, mask)))
+    rows = mask.any(1)                 # every batch row has a valid key
+    assert rows.all()
+    np.testing.assert_allclose(got[rows], want[rows], rtol=1e-5, atol=1e-5)
+
+
+def _bad_head_dim():
+    q, k, v, mask = _t(*_inputs(nq=8, nk=16, hd=32))
+    return q, k, v, mask
+
+
+def _bad_key_shape():
+    q, k, v, mask = _t(*_inputs(nq=8, nk=16))
+    return q, k[:, :, :12], v, mask
+
+
+def _bad_mask_shape():
+    q, k, v, mask = _t(*_inputs(nq=8, nk=16))
+    return q, k, v, mask[:, :12]
+
+
+def _mixed_devices():
+    q, k, v, mask = _t(*_inputs(nq=8, nk=16))
+    return q.to("meta"), k, v, mask
+
+
+def _cpu_tensors():
+    return tuple(_t(*_inputs(nq=8, nk=16)))
+
+
+@pytest.mark.parametrize("make,match", [
+    (_bad_head_dim, "64"), (_bad_key_shape, "shape mismatch"),
+    (_bad_mask_shape, "shape mismatch"), (_mixed_devices, "one device"),
+    (_cpu_tensors, "CUDA")],
+    ids=["head_dim", "key_shape", "mask_shape", "mixed_devices", "cpu"])
+def test_kernel_wrapper_rejects_what_it_cannot_launch(make, match):
+    """`flash_attention` is the kernel's wrapper: it never runs the plain
+    version, whatever it is given."""
+    with pytest.raises(ValueError, match=match):
+        attention.flash_attention(*make())
+
+
+def test_head_views_reach_the_kernel_without_a_copy():
+    """The tensor maps take LightGlue's (B, N, H, hd) views by their
+    strides; a view the maps cannot address (hd not unit-stride) is
+    copied."""
+    q = torch.zeros((2, 24, 4, 64, 3), dtype=torch.bfloat16)
+    view = q[..., 0].transpose(1, 2)                  # stride 3 along hd
+    ready = attention._tma_ready(view)
+    assert ready.is_contiguous() and ready.data_ptr() != view.data_ptr()
+    heads = torch.zeros((2, 24, 4, 64), dtype=torch.bfloat16).transpose(1, 2)
+    ready = attention._tma_ready(heads)
+    assert ready.data_ptr() == heads.data_ptr()
+    assert attention._strides(ready) == [24 * 256, 64, 256]
+    # a dim of size 1 carries no stride of its own
+    assert attention._strides(torch.zeros((1, 1, 5, 64))) == [64, 64, 64]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -90,3 +182,52 @@ def test_kernel_equals_plain_bf16(cuda, nq, nk):
     # kernel and the final max in the plain version
     err = (got - ref).abs().max() / ref.abs().max()
     assert err.item() <= 2e-3, err.item()
+
+
+def _check_kernel(cuda, b, h, nq, nk, mode, strided=False,
+                  dtype=torch.float32):
+    """Kernel vs plain bf16 at one shape; the last batch row is fully
+    masked and must come out as zeros."""
+    q, k, v, _ = _inputs(b=b, h=h, nq=nq, nk=nk, seed=nq + nk)
+    mask = _mask(mode, b, nk)
+    mask[-1] = False
+    q, k, v, mask = _t(q, k, v, mask, device=cuda)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    if strided:
+        q, k, v = _head_views(q, k, v)
+    got = attention.masked_attention(q, k, v, mask)
+    ref = attention.attention_plain(q, k, v, mask,
+                                    operand_dtype=torch.bfloat16)
+    assert got.shape == ref.shape and got.dtype == q.dtype
+    assert torch.isfinite(got.float()).all()
+    assert torch.count_nonzero(got[-1]) == 0
+    err = (got[:-1].float() - ref[:-1].float()).abs().max() \
+        / ref[:-1].float().abs().max()
+    # a bf16 output adds its own rounding: two values that round to
+    # neighbouring bf16 numbers differ by up to 2^-7 of the largest
+    tol = 2e-3 if dtype == torch.float32 else 2e-3 + 2.0 ** -7
+    assert err.item() <= tol, err.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", [1, 63, 64, 65, 127, 128, 129, 4 * 128 + 5])
+def test_kernel_key_tails(cuda, nk):
+    _check_kernel(cuda, 3, 2, 129, nk, "rand")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 127, 129, 200])
+def test_kernel_query_tails_with_padding_mask(cuda, nq):
+    _check_kernel(cuda, 3, 2, nq, 300, "prefix")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("strided", [False, True],
+                         ids=["contiguous", "head_views"])
+@pytest.mark.parametrize("mode", ["prefix", "middle"])
+def test_kernel_masked_tiles_and_head_views(cuda, mode, strided, dtype):
+    """nk = 1024: the middle mask blanks tiles 2 to 5 whole, the prefix
+    mask leaves whole tiles of padding at the end."""
+    _check_kernel(cuda, 3, 4, 256, 1024, mode, strided, dtype)

@@ -25,7 +25,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
                          + [REPO / "chip_smoke.py",
-                            REPO / "scripts" / "profile_torch_match.py"],
+                            REPO / "scripts" / "profile_torch_match.py",
+                            REPO / "scripts" / "time_torch_kernels.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_forbidden_import(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]

@@ -134,7 +134,75 @@ def test_kernel_matches_plain(cuda, hw, lo, hi, n, window):
                          gap.cpu().numpy())
 
 
-def test_kernel_wrapper_rejects_what_it_cannot_launch():
-    x = torch.zeros((8, 8), device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        sweep.disparity_sweep_kernel(x, x, 0.0, 1.0, 4, 7)
+# the kernel's tile: 16 output rows, 128 window columns, so 128 -
+# (window - 1) output columns, in strips of 8 (csrc/sweep.cu)
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(9, 300), (16, 122), (17, 123), (33, 121),
+                                (50, 261), (15, 7)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_kernel_matches_plain_off_tile_sizes(cuda, hw):
+    """H below one tile, H and W one more or less than a multiple of the
+    tile, and a last strip with a single pixel; cost bitwise equal."""
+    I0, I1 = (torch.from_numpy(a).to(cuda) for a in sweep_pair(*hw))
+    lo, hi, n = -9.7, 3.1, 33
+    got = dense.disparity_sweep(I0, I1, lo, hi, n_disp=n, window=7)
+    ref = dense.disparity_sweep_plain(I0, I1, lo, hi,
+                                      dense._pad_bucket(lo, hi),
+                                      n_disp=n, window=7)
+    assert torch.equal(got["cost"], ref["cost"])
+    gap = dense.runner_up_gap(I0, I1, lo, hi, n_disp=n, window=7)
+    _assert_sweeps_agree({k: v.cpu() for k, v in got.items()},
+                         {k: v.cpu() for k, v in ref.items()},
+                         gap.cpu().numpy(), max_tie_share=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", sweep.WINDOWS)
+def test_kernel_matches_plain_every_window(cuda, window):
+    I0, I1 = (torch.from_numpy(a).to(cuda) for a in sweep_pair(50, 261))
+    lo, hi, n = -9.0, 9.0, 19
+    got = dense.disparity_sweep(I0, I1, lo, hi, n_disp=n, window=window)
+    ref = dense.disparity_sweep_plain(I0, I1, lo, hi,
+                                      dense._pad_bucket(lo, hi),
+                                      n_disp=n, window=window)
+    assert torch.equal(got["cost"], ref["cost"])
+    gap = dense.runner_up_gap(I0, I1, lo, hi, n_disp=n, window=window)
+    _assert_sweeps_agree({k: v.cpu() for k, v in got.items()},
+                         {k: v.cpu() for k, v in ref.items()},
+                         gap.cpu().numpy(), max_tie_share=1.0)
+
+
+def _call(device="meta", shape1=(8, 8), n_disp=4, window=7):
+    return (torch.zeros((8, 8), device=device),
+            torch.zeros(shape1, device=device), 0.0, 1.0, n_disp, window)
+
+
+@pytest.mark.parametrize("args,match", [
+    (_call(), "CUDA"), (_call(device="cpu"), "CUDA"),
+    (_call(shape1=(8, 9)), "one shape"), (_call(window=4), "windows"),
+    (_call(window=17), "windows"), (_call(n_disp=0), "n_disp")],
+    ids=["meta", "cpu", "shape", "even_window", "wide_window", "n_disp"])
+def test_kernel_wrapper_rejects_what_it_cannot_launch(args, match):
+    """`disparity_sweep_kernel` is the kernel's wrapper: it never runs
+    the plain version, whatever it is given."""
+    with pytest.raises(ValueError, match=match):
+        sweep.disparity_sweep_kernel(*args)
+
+
+@pytest.mark.parametrize("window", [3, 5, 9, 11])
+def test_plain_sweep_matches_xla_other_windows(window):
+    """The plain version rounds as XLA does at every window the kernel is
+    built for, not only the pipeline's 7."""
+    import jax.numpy as jnp
+    from icepy4d_tpu.ops.dense import _disparity_sweep
+
+    lo, hi, n = -9.0, 9.0, 19
+    I0, I1 = sweep_pair(50, 131)
+    t0, t1 = torch.from_numpy(I0), torch.from_numpy(I1)
+    gap = dense.runner_up_gap(t0, t1, lo, hi, n_disp=n, window=window)
+    got = dense.disparity_sweep(t0, t1, lo, hi, n_disp=n, window=window)
+    ref = _disparity_sweep(jnp.asarray(I0), jnp.asarray(I1), jnp.float32(lo),
+                           jnp.float32(hi), pad=dense._pad_bucket(lo, hi),
+                           n_disp=n, window=window)
+    _assert_sweeps_agree({k: v.numpy() for k, v in got.items()}, ref,
+                         gap.numpy())

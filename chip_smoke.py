@@ -11,7 +11,11 @@ anything in it fails:
 2. build: compiles every kernel in icepy4d_tpu_torch/csrc with nvcc, one
    process per source, all at once;
 3. kernel vs plain: each kernel against its plain PyTorch version, at
-   small odd shapes and at the main path's shapes (NMS bitwise equal;
+   small odd shapes and at the main path's shapes (NMS bitwise equal,
+   also at heights and widths around its tile sides and its 32-pixel
+   mask words, at widths that are no multiple of 4, at every radius
+   from 1 to 4, with the pre-pad extent below the map's, and on maps
+   with negative scores, of one value and of zeros;
    attention within 2e-3 of the plain bf16 version, relative to the
    output's largest magnitude, also at key and query counts around its
    128-wide tiles, with padding masks, a run of fully masked tiles and
@@ -26,6 +30,8 @@ anything in it fails:
    with a known 8-px shift, 2x2 EXHAUSTIVE tiles, 4096 keypoints per
    tile, bundled weights, PYDEGENSAC; run cold, then warm with every
    launch count set to 0, and checked against the ground-truth shift;
+   one NMS launch per extraction chunk, and the NMS kernel once more
+   against its plain version on the run's own SuperPoint heat map;
 5. LightGlue on the matcher path's tile-pair batch, with the attention
    kernel and with the plain bf16 attention: >= 98% of the match
    decisions agree with an f32 trunk, and with the matcher's bf16 trunk
@@ -186,16 +192,62 @@ def attention_inputs(b, h, nq, nk, dev, seed=0, p_keep=0.9):
     return q, k, v, mask
 
 
-def check_nms(nms, dev, shape, r=4, border=4) -> float:
-    heat = heat_map(shape, dev)
-    h0, w0 = shape[1] - 5, shape[2] - 3          # pre-pad extent
-    got = nms.fused_nms_border(heat, r, border, h0, w0)
-    ref = nms.nms_border_plain(heat, r, border, h0, w0)
+def nms_map(shape, dev, kind: str, seed=0) -> torch.Tensor:
+    """Scores of one kind: `ties` random in [0, 1) with a plateau;
+    `negative` random in [-1, 1) with plateaus of 0.0, -0.0 and -0.5
+    and denormals of both signs; `equal` 0.3 everywhere; `zero`."""
+    if kind == "equal":
+        return torch.full(shape, 0.3, device=dev)
+    if kind == "zero":
+        return torch.zeros(shape, device=dev)
+    heat = heat_map(shape, dev, seed)
+    if kind == "negative":
+        heat = heat * 2 - 1
+        heat[:, 30:50, 5:40] = 0.0
+        heat[:, 5:9, 50:70] = -0.5
+        heat[:, 20:24, 100:140] = -0.0
+        heat[:, 60:64, 10:14] = 1e-42
+        heat[:, 64:66, 10:14] = -1e-42
+    return heat
+
+
+def nms_cases(nms) -> list:
+    """(shape, radius, (h0, w0) deficit, kind of map) of phase 3's NMS
+    checks, B = 3: heights and widths of 1, one less than, equal to, one
+    more than and 2 x + 5 the tile's sides, for every radius from 1 to 4
+    (all pairs at the main path's radius 4, the diagonal elsewhere);
+    widths around the 32-pixel mask words; each kind of map."""
+    cases = []
+    for r in (4, 3, 2, 1):
+        th, tw = nms.tile_shape(r)
+        hs = (1, th - 1, th, th + 1, 2 * th + 5)
+        ws = (1, tw - 1, tw, tw + 1, 2 * tw + 5)
+        sizes = [(h, w) for h in hs for w in ws] if r == 4 else zip(hs, ws)
+        for i, (h, w) in enumerate(sizes):
+            pad = (5, 3) if i % 2 and h > 5 and w > 3 else (0, 0)
+            cases.append(((3, h, w), r, pad, "ties"))
+    for w in (31, 32, 33, 63, 65, 95, 97, 127, 129, 191, 193, 517):
+        cases.append(((3, 77, w), 4, (0, 0), "ties"))
+        cases.append(((3, 70, w), 2, (2, 1), "negative"))
+    for kind in ("negative", "equal", "zero"):
+        for r in (1, 2, 3, 4):
+            cases.append(((3, 301, 517), r, (5, 3), kind))
+            cases.append(((3, 40, 170), r, (0, 0), kind))
+    return cases
+
+
+def check_nms(nms, heat, r, pad, label) -> float:
+    """NMS kernel vs plain on a CUDA map, bit for bit (the sign of a
+    zero included); the pre-pad extent is the map's less `pad`."""
+    h0, w0 = heat.shape[1] - pad[0], heat.shape[2] - pad[1]
+    got = nms.fused_nms_border(heat, r, 4, h0, w0)
+    ref = nms.nms_border_plain(heat, r, 4, h0, w0)
     torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        raise AssertionError(f"NMS kernel != plain at {shape}: "
-                             f"{(got != ref).sum().item()} pixels differ")
-    log(f"  nms {shape}: bitwise equal")
+    differ = got.view(torch.int32) != ref.view(torch.int32)
+    if differ.any().item():
+        raise AssertionError(
+            f"NMS kernel != plain at {tuple(heat.shape)} r={r} pad={pad} "
+            f"{label}: {differ.sum().item()} pixels differ")
     return 0.0
 
 
@@ -299,6 +351,7 @@ def main() -> None:
                                             TileSelection)
     from icepy4d_tpu_torch.io import read_ply, write_ply
     from icepy4d_tpu_torch.models import LightGlue
+    from icepy4d_tpu_torch.models import superpoint as sp_module
     from icepy4d_tpu_torch.ops import _build, attention, dense, nms, sweep
     from icepy4d_tpu_torch.sfm import PlaneSweepStereo
     from icepy4d_tpu_torch.sfm import dense as sfm_dense
@@ -328,16 +381,27 @@ def main() -> None:
     _build.build_all([k.source for k in kernels_used.values()])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for src, text in _build.build_logs.items():
+        entry = ""               # of nms.cu's radii, the main path's only
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                entry = line
+            elif ("registers" in line or "spill" in line) and \
+                    (src != "nms.cu" or "ILi4E" in entry):
                 log(f"  {src}: {line.strip()}")
 
     # -- 3. kernel vs plain --------------------------------------------------
     log("kernel vs plain:")
-    check_nms(nms, dev, (2, 301, 517))
-    check_nms(nms, dev, (1, 67, 45), r=2)
+    check_nms(nms, heat_map((2, 301, 517), dev), 4, (5, 3), "ties")
+    check_nms(nms, heat_map((1, 67, 45), dev), 2, (5, 3), "ties")
+    cases = nms_cases(nms)
+    for shape, r, pad, kind in cases:
+        check_nms(nms, nms_map(shape, dev, kind), r, pad, kind)
+    log(f"  nms: bitwise equal at {len(cases) + 2} shapes (tile "
+        f"{nms.tile_shape(4)} at r=4, radii 1-4, word seams, unaligned "
+        f"widths, h0 < H, negative / all-equal / all-zero maps)")
     nms_shape = (2, 2400, 3400)          # one extraction chunk of the main path
-    nms_err = check_nms(nms, dev, nms_shape)
+    nms_err = check_nms(nms, heat_map(nms_shape, dev), 4, (5, 3), "ties")
+    log(f"  nms {nms_shape}: bitwise equal")
     check_attention(attention, dev, 3, 4, 77, 130)
     check_attention(attention, dev, 2, 4, 200, 33)
     # key and query tails around the kernel's 128-wide tiles, padding
@@ -378,6 +442,15 @@ def main() -> None:
         return run_matcher(data)
 
     matcher._run_matcher = capture
+    heats = []                   # the warm run's first SuperPoint heat map
+    run_nms = sp_module.fused_nms_border
+
+    def capture_heat(heat, *a):
+        if not heats:
+            heats.append(heat)
+        return run_nms(heat, *a)
+
+    sp_module.fused_nms_border = capture_heat
     call = dict(quality=Quality.HIGH, tile_selection=TileSelection.EXHAUSTIVE,
                 grid=[2, 2], overlap=200,
                 geometric_verification=GeometricVerification.PYDEGENSAC,
@@ -385,6 +458,7 @@ def main() -> None:
     times = {}
     for run in ("cold", "warm"):
         captured.clear()
+        heats.clear()
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -392,6 +466,7 @@ def main() -> None:
         torch.cuda.synchronize()
         times[run] = time.perf_counter() - t0
         launches = read_counts()
+    sp_module.fused_nms_border = run_nms
     stages = dict(matcher.timer.times)
     n_put = len(matcher.inlier_mask)
     n_inl = len(matcher.mkpts0)
@@ -406,8 +481,17 @@ def main() -> None:
         raise AssertionError("no putative matches or no inliers")
     if precision < 0.9:
         raise AssertionError(f"inlier precision {precision} < 0.9")
-    if launches["nms"] < 2:
-        raise AssertionError(f"NMS kernel launched {launches['nms']} times")
+    # one launch per extraction chunk: two images of 2 x 2 tiles each
+    sp_heat = heats[0]
+    if tuple(sp_heat.shape[1:]) != nms_shape[1:]:
+        raise AssertionError(f"SuperPoint heat map {tuple(sp_heat.shape)}")
+    n_chunks = 2 * (4 // matcher._extract_chunk(4, *nms_shape[1:]))
+    if launches["nms"] != n_chunks or sp_heat.shape[0] * n_chunks != 8:
+        raise AssertionError(f"NMS kernel launched {launches['nms']} times "
+                             f"for {n_chunks} extraction chunks")
+    check_nms(nms, sp_heat, 4, (0, 0), "SuperPoint heat map")
+    log(f"  nms on the run's SuperPoint heat map {tuple(sp_heat.shape)}: "
+        f"bitwise equal")
     if launches["attention"] != 4 * n_layers * len(captured):
         raise AssertionError(f"attention kernel launched "
                              f"{launches['attention']} times")
@@ -452,7 +536,7 @@ def main() -> None:
         raise AssertionError(f"bf16-trunk match agreement {agree['bf16']} "
                              f"below the yardstick {yardstick}")
 
-    del data, captured, lg32, matcher
+    del data, captured, lg32, matcher, heats
     torch.cuda.empty_cache()
 
     # -- 6. dense path ---------------------------------------------------------
@@ -523,6 +607,9 @@ def main() -> None:
     args = (4, 4, hh, ww)
     nms_ms = cuda_ms(lambda: nms.fused_nms_border(heat, *args), 20)
     nms_plain_ms = cuda_ms(lambda: nms.nms_border_plain(heat, *args), 5)
+    nms_sp_ms = cuda_ms(lambda: nms.fused_nms_border(sp_heat, *args), 20)
+    log(f"nms {nms_shape} r=4: {nms_ms:.4f} ms on random scores, "
+        f"{nms_sp_ms:.4f} ms on the matcher path's SuperPoint heat map")
     px = b * hh * ww
     # f32 read + write; 5 pools x 2 separable passes x 2r compares
     nms_bound, nms_by = lower_bound(px * 8, px * 5 * 2 * 8, F32_FLOPS)

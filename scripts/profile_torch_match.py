@@ -9,7 +9,8 @@ tile, bundled weights, PYDEGENSAC); `--path dense` its dense path
 (PlaneSweepStereo at the pipeline's settings on the synthetic 6012x4008
 plane pair). Each runs once cold, then once under `torch.profiler` with
 CPU and CUDA activity. Prints the card, the device kernels with the most
-device time, the run's stage split, and the device's busy and idle share
+device time (and the port's own kernels wherever they rank), the run's
+stage split, and the device's busy and idle share
 of the warm run's wall time (one stream, so kernels do not overlap and
 busy time is their sum). Needs one CUDA device.
 """
@@ -87,9 +88,12 @@ def main() -> None:
     print(chip_smoke.card_line())
     print(f"warm {args.path} wall {wall:.4f} s, stages {owner.timer.times}")
     print(f"{'device ms':>10} {'calls':>6}  kernel")
-    for e in kernels[:args.top]:
-        print(f"{e.self_device_time_total / 1e3:10.3f} {e.count:6d}  "
-              f"{e.key[:110]}")
+    own = ("nms_border_kernel", "masked_attention_kernel", "sweep_kernel")
+    for i, e in enumerate(kernels):
+        # the top of the list, and the port's own kernels wherever they are
+        if i < args.top or any(name in e.key for name in own):
+            print(f"{e.self_device_time_total / 1e3:10.3f} {e.count:6d}  "
+                  f"{e.key[:110]}")
     # the PyTorch ops that launched the most device time, by input shape
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.device_type == torch.autograd.DeviceType.CPU

@@ -47,7 +47,21 @@ anything in it fails:
    then the sweep kernel against its plain version on the run's
    rectified 4008x6012 pair, 128 hypotheses, both directions (the
    phase-3 rule);
-7. times: each kernel, its plain version, the library call that
+7. season path: a synthetic 3-epoch season of 6012x4008 frames
+   (tests/torch_port_inputs.py::StereoSeason, rendered on the card:
+   three textured faces 79-100 m away, two f = 6000 px cameras 4 m
+   apart, five surveyed targets on stable faces, mtime timestamps)
+   through the port's Pipeline(cfg).run() with bundled weights, 2x2
+   EXHAUSTIVE tiles with 200 px overlap, 4096 keypoints a tile,
+   PYDEGENSAC at 1 px, orientation, AO and BA at the pipeline's
+   defaults with the "metashape" intrinsics; every epoch ok with no
+   recovery and within SEASON_GATES (BA RMSE <= 0.15 px, >= 4500 tie
+   points, relative rotation within 0.01 degrees of the truth, median
+   distance of the georeferenced points to the true faces <= 0.025 m),
+   each epoch exactly phase 4's NMS and attention launches, both CSV
+   sinks and three checkpoints; prints the cold and warm epoch times by
+   stage;
+8. times: each kernel, its plain version, the library call that
    computes the same function (where there is one) and the card's lower
    bound, printed as one JSON line.
 
@@ -71,6 +85,17 @@ REPO = Path(__file__).resolve().parent
 DX, DY = 16, 8                 # ground-truth shift of the matcher's pair
 H_IMG, W_IMG = 4008, 6012      # the pairs' full size
 PLANE_Z = 200.0                # depth of the dense pair's plane, m
+SEASON_F = 6000.0              # focal of the season's cameras, px
+SEASON_BASELINE = 4.0          # m: disparities of 240-304 px, < 10% of a tile
+SEASON_CELL_PX = 24.0          # texture cell, px: 10-px cells left
+                               # DEGENSAC's consensus unstable at 6012 px
+SEASON_KEYPOINTS = 4096        # keypoints a tile on the season path
+# Gates of every season epoch, each about 3x (20% for the points) off
+# what two H100 runs of this season read: BA rmse 0.044-0.052 px,
+# 5540-5655 tie points, relative rotation 0.0022-0.0028 degrees off the
+# truth, median distance to the true faces 3-8 mm.
+SEASON_GATES = {"rmse_px": 0.15, "points": 4500, "rotation_deg": 0.01,
+                "surface_m": 0.025}
 TIE = 1e-5                     # runner-up minus best cost of a near tie
 # f32 operations per pixel and hypothesis of the disparity sweep, each
 # box filter counted as separable running sums: the shift's lerp 3, the
@@ -341,6 +366,113 @@ def sweep_inputs(dev, h, w, shift, seed=0):
             torch.from_numpy(np.ascontiguousarray(I1)).to(dev))
 
 
+def season_config(dev, root, n_epochs: int,
+                  cell_px: float = SEASON_CELL_PX):
+    """Render the synthetic full-size season on `dev`, write it under
+    `root` and return (scene, the Pipeline config of the season path):
+    2x2 EXHAUSTIVE tiles with 200 px overlap, SEASON_KEYPOINTS a tile,
+    the "metashape" BA preset."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_port_inputs import StereoSeason
+
+    scene = StereoSeason(H_IMG, W_IMG, SEASON_F, baseline=SEASON_BASELINE,
+                         cell_px=cell_px, device=dev)
+    cfg = scene.write(root, n_epochs=n_epochs, max_keypoints=SEASON_KEYPOINTS)
+    cfg["matching"].update(tile_selection="exhaustive", grid=[2, 2],
+                           overlap=round(200 * W_IMG / 6012))
+    cfg["ba"] = {"free_intrinsics": "metashape"}
+    del scene.tex
+    torch.cuda.empty_cache()
+    return scene, cfg
+
+
+def season_path(dev, reset_counts, read_counts, per_match: dict) -> dict:
+    """Phase 7: the port's Pipeline on a synthetic full-size season;
+    returns what the JSON line reports."""
+    import csv
+
+    from icepy4d_tpu_torch.pipeline import Pipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scene, cfg = season_config(dev, tmp, n_epochs=3)
+        write_s = time.perf_counter() - t0
+
+        pipe = Pipeline(cfg)
+        counts = []
+
+        def on_epoch(epoch):
+            counts.append(read_counts())
+            reset_counts()
+
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        epochs = list(pipe.run(on_epoch=on_epoch))
+        run_s = time.perf_counter() - t0
+        res = Path(cfg["paths"]["results_dir"])
+        sinks = {}
+        for name in ("residuals_image.csv", "estimated_cameras.csv"):
+            with open(res / name) as f:
+                sinks[name] = len(list(csv.reader(f)))
+        n_ckpt = len(list((res / "epochs").rglob("*.pickle")))
+
+    stats, rot_deg, surf_m = [], [], []
+    for e in epochs:
+        R0, R1 = (np.asarray(e.cameras[c].R, np.float64) for c in pipe.cams)
+        rel = R1 @ R0.T                           # true: the identity
+        s = np.linalg.norm([rel[2, 1] - rel[1, 2], rel[0, 2] - rel[2, 0],
+                            rel[1, 0] - rel[0, 1]]) / 2
+        rot_deg.append(float(np.degrees(np.arctan2(s, (np.trace(rel) - 1)
+                                                   / 2))))
+        surf_m.append(float(np.median(scene.surface_distance(
+            e.points.to_numpy()))))
+        stats.append(dict(e.quality["stats"], status=e.quality["status"],
+                          flags=e.quality["flags"],
+                          n_points=len(e.points)))
+    out = {"write_s": write_s, "run_s": run_s,
+           "stage_times_s": {str(k): v for k, v in pipe.stage_times.items()},
+           "epochs": stats, "rel_rotation_err_deg": rot_deg,
+           "median_surface_dist_m": surf_m, "launches": counts,
+           "sink_rows": sinks, "checkpoints": n_ckpt}
+    log(f"season path: {len(epochs)} epochs of {W_IMG}x{H_IMG} pairs, "
+        f"frames written in {write_s:.1f} s, run {run_s:.1f} s")
+    for ep, t in pipe.stage_times.items():
+        log(f"  epoch {ep} ({'cold' if ep == 0 else 'warm'}): "
+            + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                        f"{k} {v}" for k, v in t.items()))
+    for st, r, d, c in zip(stats, rot_deg, surf_m, counts):
+        log(f"  {st['status']} {st['flags']}: putative {st['n_putative']}, "
+            f"verified {st['n_matches']}, orientation inliers "
+            f"{st['n_orientation_inliers']}, BA rmse "
+            f"{st.get('ba_rmse_px', float('nan')):.4f} px, points "
+            f"{st['n_points']}, relative rotation error {r:.5f} deg, "
+            f"median surface distance {d:.4f} m, launches {c}")
+    for st, r, d, c in zip(stats, rot_deg, surf_m, counts):
+        if st["status"] != "ok" or st["flags"] or "recovered" in st:
+            raise AssertionError(f"season epoch not ok: {st}")
+        if not st.get("ba_rmse_px", np.inf) <= SEASON_GATES["rmse_px"]:
+            raise AssertionError(f"BA rmse {st.get('ba_rmse_px')} > "
+                                 f"{SEASON_GATES['rmse_px']} px")
+        if st["n_points"] < SEASON_GATES["points"]:
+            raise AssertionError(f"{st['n_points']} tie points < "
+                                 f"{SEASON_GATES['points']}")
+        if not r <= SEASON_GATES["rotation_deg"]:
+            raise AssertionError(f"relative rotation error {r} deg > "
+                                 f"{SEASON_GATES['rotation_deg']}")
+        if not d <= SEASON_GATES["surface_m"]:
+            raise AssertionError(f"median surface distance {d} m > "
+                                 f"{SEASON_GATES['surface_m']}")
+        if c != per_match:
+            raise AssertionError(f"epoch launches {c} != phase 4's "
+                                 f"{per_match}")
+    if len(epochs) != 3 or n_ckpt != 3 or any(
+            n != 4 for n in sinks.values()):
+        raise AssertionError(f"{len(epochs)} epochs, {n_ckpt} checkpoints, "
+                             f"sink rows {sinks}")
+    return out
+
+
 def main() -> None:
     # -- 1. card ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -601,7 +733,12 @@ def main() -> None:
     del pss, res, pts, colors, back, cams, imgs
     torch.cuda.empty_cache()
 
-    # -- 7. times --------------------------------------------------------------
+    # -- 7. season path --------------------------------------------------------
+    season = season_path(dev, reset_counts, read_counts,
+                         dict(launches, sweep=0))
+    torch.cuda.empty_cache()
+
+    # -- 8. times --------------------------------------------------------------
     heat = heat_map(nms_shape, dev)
     b, hh, ww = nms_shape
     args = (4, 4, hh, ww)
@@ -666,7 +803,8 @@ def main() -> None:
             "warm_s": dense_times["warm"], "cold_s": dense_times["cold"],
             "stages_s": dense_stages, "valid_inner": valid_inner,
             "median_rel_depth_err": depth_err, "median_abs_z_err_m": z_err,
-            "sweep_shape": sweep_shape}}))
+            "sweep_shape": sweep_shape},
+        "season_path": season}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

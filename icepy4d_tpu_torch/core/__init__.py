@@ -1,4 +1,5 @@
-"""Camera model and calibration files of the port."""
+"""Core data of the port: cameras and calibration files, images,
+features, points, targets and epochs (host containers)."""
 
 from icepy4d_tpu_torch.core.calibration import (  # noqa: F401
     Calibration,
@@ -6,3 +7,17 @@ from icepy4d_tpu_torch.core.calibration import (  # noqa: F401
     read_xml_calibration,
 )
 from icepy4d_tpu_torch.core.camera import Camera  # noqa: F401
+from icepy4d_tpu_torch.core.constants import (  # noqa: F401
+    DATE_FMT,
+    DATETIME_FMT,
+    TIME_FMT,
+)
+from icepy4d_tpu_torch.core.epoch import (  # noqa: F401
+    Epoch,
+    EpochDataMap,
+    Epoches,
+)
+from icepy4d_tpu_torch.core.features import Features  # noqa: F401
+from icepy4d_tpu_torch.core.images import Image, ImageDS, read_image  # noqa: F401
+from icepy4d_tpu_torch.core.points import Points  # noqa: F401
+from icepy4d_tpu_torch.core.targets import Targets  # noqa: F401

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -18,3 +20,15 @@ def resolve_device(device=None) -> torch.device:
             "icepy4d_tpu_torch runs on a CUDA device by default and none "
             "is available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Matrix products in full float32 (no TF32) inside the block,
+    whatever the caller set."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

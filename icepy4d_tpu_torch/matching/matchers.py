@@ -57,6 +57,14 @@ def _host_gray(im):
     return im
 
 
+def _to_device(im, device: torch.device) -> torch.Tensor:
+    """A host image (grayscale on the host first) or a tensor already
+    uploaded (the pipeline's prefetched frames) on `device`."""
+    if torch.is_tensor(im):
+        return im.to(device)
+    return torch.from_numpy(np.ascontiguousarray(_host_gray(im))).to(device)
+
+
 def _preprocess(image: torch.Tensor, quality: str) -> torch.Tensor:
     """uint8/float (H, W[, 3]) -> grayscale [0, 1] at the quality scale."""
     img = image.to(torch.float32)
@@ -445,10 +453,8 @@ class ImageMatcherBase:
         qname = QUALITY_NAMES[quality]
 
         with torch.inference_mode():
-            g0 = _preprocess(torch.from_numpy(np.ascontiguousarray(
-                _host_gray(image0))).to(self.device), qname)
-            g1 = _preprocess(torch.from_numpy(np.ascontiguousarray(
-                _host_gray(image1))).to(self.device), qname)
+            g0 = _preprocess(_to_device(image0, self.device), qname)
+            g1 = _preprocess(_to_device(image1, self.device), qname)
             if tile_selection is TileSelection.NONE:
                 res = self._match_full(g0, g1)
             else:

@@ -1,5 +1,8 @@
 """Two-view epipolar estimators for RANSAC, batched over leading dims
-(counterpart of `icepy4d_tpu/ops/epipolar.py`, the subset DEGENSAC uses).
+(counterpart of `icepy4d_tpu/ops/epipolar.py`): the fundamental and
+essential 8-point solvers, Sampson scoring, homographies and the
+plane-and-parallax recovery of DEGENSAC, and the essential matrix's
+decomposition with its cheirality vote.
 
 Point sets are (..., N, 2) with weights (..., N); a model batch (H, 3, 3)
 scores a shared (N, 2) point set by broadcasting, giving (H, N).
@@ -56,6 +59,15 @@ def eight_point(x0: torch.Tensor, x1: torch.Tensor,
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], -1)
     F = T1.mT @ (U @ torch.diag_embed(S) @ Vh) @ T0
     return F / _safe(F[..., 2, 2])[..., None, None]
+
+
+def essential_eight_point(x0n: torch.Tensor, x1n: torch.Tensor,
+                          w: torch.Tensor) -> torch.Tensor:
+    """8-point on K-normalised coords, projected onto the essential
+    manifold (singular values (1, 1, 0))."""
+    U, _, Vh = torch.linalg.svd(eight_point(x0n, x1n, w))
+    s = torch.tensor([1.0, 1.0, 0.0], dtype=U.dtype, device=U.device)
+    return (U * s) @ Vh
 
 
 def sampson_distance(F: torch.Tensor, x0: torch.Tensor,
@@ -162,3 +174,46 @@ def fundamental_from_homography(H: torch.Tensor, x0: torch.Tensor,
         e1 = solve(w_offplane / (1.0 + (d / scale.clamp_min(1e-12)) ** 2))
     F = skew(e1) @ H
     return F / F.abs().max().clamp_min(1e-12)
+
+
+def decompose_essential(E: torch.Tensor):
+    """E (3, 3) -> the 4 candidate poses (Rs (4, 3, 3), ts (4, 3))."""
+    U, _, Vh = torch.linalg.svd(E)
+    U = U * torch.sign(torch.linalg.det(U))            # proper rotations
+    Vh = Vh * torch.sign(torch.linalg.det(Vh))
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                     dtype=E.dtype, device=E.device)
+    R1 = U @ W @ Vh
+    R2 = U @ W.mT @ Vh
+    t = U[:, 2]
+    return torch.stack([R1, R1, R2, R2]), torch.stack([t, -t, t, -t])
+
+
+def _cheirality_depths(R: torch.Tensor, t: torch.Tensor, x0n: torch.Tensor,
+                       x1n: torch.Tensor):
+    """Depths (z0, z1) of the homogeneous DLT triangulation of each
+    correspondence for P0 = [I | 0], P1 = [R | t] (batched over leading
+    dims of R and t); x*n are K-normalised (N, 2) coords."""
+    eye = torch.eye(3, dtype=R.dtype, device=R.device).expand(R.shape)
+    P0 = torch.cat([eye, torch.zeros_like(t)[..., None]], -1)
+    P1 = torch.cat([R, t[..., None]], -1)
+    P0, P1 = P0[..., None, :, :], P1[..., None, :, :]   # (..., 1, 3, 4)
+    A = torch.stack([x0n[..., 0, None] * P0[..., 2, :] - P0[..., 0, :],
+                     x0n[..., 1, None] * P0[..., 2, :] - P0[..., 1, :],
+                     x1n[..., 0, None] * P1[..., 2, :] - P1[..., 0, :],
+                     x1n[..., 1, None] * P1[..., 2, :] - P1[..., 1, :]], -2)
+    X = torch.linalg.eigh(A.mT @ A)[1][..., :, 0]         # (..., N, 4)
+    X = X / _safe(X[..., 3:])
+    z1 = (X[..., :3] * R[..., None, 2, :]).sum(-1) + t[..., None, 2]
+    return X[..., 2], z1
+
+
+def recover_pose(E: torch.Tensor, x0n: torch.Tensor, x1n: torch.Tensor,
+                 w: torch.Tensor):
+    """The (R, t) of E with the best weighted cheirality vote (both
+    depths positive). Returns (R, t, front mask of the winner)."""
+    Rs, ts = decompose_essential(E)
+    z0, z1 = _cheirality_depths(Rs, ts, x0n, x1n)      # (4, N)
+    front = (z0 > 0) & (z1 > 0)
+    best = torch.argmax((front.to(torch.float32) * w).sum(-1))
+    return Rs[best], ts[best], front[best]

@@ -143,3 +143,29 @@ def euler_from_matrix(R, eps: float = 1e-8):
     ay = np.arctan2(-R[..., 2, 0], cy)
     az = np.where(safe, np.arctan2(R[..., 1, 0], R[..., 0, 0]), 0.0)
     return ax, ay, az
+
+
+def similarity_from_points(v0, v1, with_scale: bool = True,
+                           weights=None) -> np.ndarray:
+    """Least-squares similarity T (4x4, float32) with v1 ~= T @ v0, by
+    Umeyama's SVD method in float64 (absolute orientation solves this
+    every epoch on a handful of points)."""
+    v0 = np.asarray(v0, np.float64).reshape(-1, 3)
+    v1 = np.asarray(v1, np.float64).reshape(-1, 3)
+    w = (np.ones(len(v0)) if weights is None
+         else np.asarray(weights, np.float64).reshape(-1))
+    wsum = max(float(w.sum()), 1e-12)
+    mu0 = (v0 * w[:, None]).sum(0) / wsum
+    mu1 = (v1 * w[:, None]).sum(0) / wsum
+    x0 = v0 - mu0
+    x1 = v1 - mu1
+    cov = (x1 * w[:, None]).T @ x0 / wsum
+    U, S, Vt = np.linalg.svd(cov)
+    d = float(np.sign(np.linalg.det(U @ Vt)))
+    R = U @ np.diag([1.0, 1.0, d]) @ Vt
+    var0 = float((w[:, None] * x0 * x0).sum()) / wsum
+    s = ((S[0] + S[1] + S[2] * d) / max(var0, 1e-12)) if with_scale else 1.0
+    T = np.eye(4, dtype=np.float64)
+    T[:3, :3] = s * R
+    T[:3, 3] = mu1 - s * (R @ mu0)
+    return T.astype(np.float32)

@@ -192,3 +192,57 @@ def ransac_fundamental_degensac(gen, x0, x1, mask, threshold: float = 1.5,
     allow = torch.stack([torch.ones_like(ok_pp), ok_pp, ok_pp, ok_pp])
     best = torch.argmax(torch.where(allow, scores, -1.0))
     return cand_F[best], cand_inl[best], degenerate
+
+
+def ransac_essential_pose(gen, x0, x1, K0, K1, mask, threshold_px: float = 1.0,
+                          n_hypotheses: int = 512, guidance=None,
+                          F_hint=None, idx=None):
+    """Essential-matrix RANSAC with cheirality pose recovery.
+
+    Pixel coords in, pose out: Sampson distances are scored in
+    K-normalised units against `threshold_px` over the mean focal.
+    Hypotheses are 8-point solutions on the gathered minimal samples,
+    plus, with `F_hint` (a verified F), K1^T F K0 projected onto the
+    essential manifold. Selection is by the (rank-weighted with
+    `guidance`) consensus; two weighted refits are candidates accepted
+    by hard count, a 1e-3 bonus preferring refits on ties.
+    Returns (R, t, E, inlier mask): x1 = R x0 + t, t unit norm.
+    """
+    f_mean = (K0[0, 0] + K0[1, 1] + K1[0, 0] + K1[1, 1]) / 4.0
+    th2 = (threshold_px / f_mean) ** 2
+
+    def norm(x, K):
+        return torch.stack([(x[..., 0] - K[0, 2]) / K[0, 0],
+                            (x[..., 1] - K[1, 2]) / K[1, 1]], -1)
+
+    x0n, x1n = norm(x0, K0), norm(x1, K1)
+    if idx is None:
+        idx = sample_minimal_sets(gen, mask, n_hypotheses, 8, guidance)
+    models = _gathered(epipolar.essential_eight_point, x0n, x1n)(idx)
+    if F_hint is not None:
+        U, _, Vh = torch.linalg.svd(K1.mT @ F_hint @ K0)
+        s = torch.tensor([1.0, 1.0, 0.0], device=U.device)
+        models = torch.cat([models, ((U * s) @ Vh)[None]], 0)
+    inl_all = (epipolar.sampson_distance(models, x0n, x1n) < th2) \
+        & mask[None, :]
+    fmask = mask.to(torch.float32)
+    rw = fmask if guidance is None else 0.1 + rank_weights(mask, guidance)
+    qw = rw * fmask
+    best = torch.argmax(torch.where(inl_all, qw[None, :], 0.0).sum(1))
+    E, inliers = models[best], inl_all[best]
+
+    # refits are candidates accepted by hard (weighted) count: a weighted
+    # refit that shrinks to the top-ranked rows must not win
+    cand_E, cand_inl = [E], [inliers]
+    inlc = inliers
+    for _ in range(2):
+        Ec = epipolar.essential_eight_point(x0n, x1n, inlc * rw)
+        inlc = (epipolar.sampson_distance(Ec, x0n, x1n) < th2) & mask
+        cand_E.append(Ec)
+        cand_inl.append(inlc)
+    scores = torch.stack([torch.where(i, qw, 0.0).sum() for i in cand_inl])
+    bi = torch.argmax(scores + 1e-3 * torch.arange(
+        len(cand_inl), device=scores.device))
+    E, inliers = torch.stack(cand_E)[bi], torch.stack(cand_inl)[bi]
+    R, t, front = epipolar.recover_pose(E, x0n, x1n, inliers.to(torch.float32))
+    return R, t, E, inliers & front

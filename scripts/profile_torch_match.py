@@ -1,18 +1,32 @@
 #!/usr/bin/env python3
 """Where a warm full-size run of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/profile_torch_match.py [--path match|dense] [--top 25]
+    python3 scripts/profile_torch_match.py [--path match|dense|season]
+        [--top 25]
 
 `--path match` (the default) runs `chip_smoke.py`'s matcher path
 (synthetic 6012x4008 pair, 2x2 EXHAUSTIVE tiles, 4096 keypoints per
 tile, bundled weights, PYDEGENSAC); `--path dense` its dense path
 (PlaneSweepStereo at the pipeline's settings on the synthetic 6012x4008
 plane pair). Each runs once cold, then once under `torch.profiler` with
-CPU and CUDA activity. Prints the card, the device kernels with the most
-device time (and the port's own kernels wherever they rank), the run's
-stage split, and the device's busy and idle share
-of the warm run's wall time (one stream, so kernels do not overlap and
-busy time is their sum). Needs one CUDA device.
+CPU and CUDA activity.
+
+`--path season` runs `Pipeline.run()` on `chip_smoke.py`'s season
+(`chip_smoke.season_config`, three epochs): epoch 0 is the cold run,
+epoch 1 runs under the full profiler, and the device time is also split
+by the pipeline's profiler ranges (matcher, ransac, triangulation, ba)
+and the host's share of the wall time; epoch 2 runs under a profiler
+that traces CUDA activity only, which costs far less a launch, for the
+device's busy and idle share of an epoch closer to an untraced one. The
+profiled windows run from the end of one epoch to the end of the next,
+so they hold the next epoch's decode in the worker thread, as a season
+does.
+
+Prints the card, the device kernels with the most device time (and the
+port's own kernels wherever they rank), the run's stage split, and the
+device's busy and idle share of the warm run's wall time (one stream,
+so kernels do not overlap and busy time is their sum). Needs one CUDA
+device.
 """
 
 from __future__ import annotations
@@ -20,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -27,10 +42,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 REPO = Path(__file__).resolve().parents[1]
+# the Pipeline's profiler ranges (icepy4d_tpu_torch/pipeline.py)
+STAGES = ("matcher", "ransac", "triangulation", "ba")
+OWN = ("nms_border_kernel", "masked_attention_kernel", "sweep_kernel")
 
 
 def matcher_run(chip_smoke):
-    """(warm-run callable, object whose .timer holds the stage split)."""
+    """(warm-run callable, callable returning the run's stage split)."""
     from icepy4d_tpu_torch.matching import (GeometricVerification,
                                             LightGlueMatcher, Quality,
                                             TileSelection)
@@ -41,7 +59,8 @@ def matcher_run(chip_smoke):
                 grid=[2, 2], overlap=200,
                 geometric_verification=GeometricVerification.PYDEGENSAC,
                 threshold=1.0)
-    return (lambda: matcher.match(img0, img1, **call)), matcher
+    return (lambda: matcher.match(img0, img1, **call)), \
+        (lambda: matcher.timer.times)
 
 
 def dense_run(chip_smoke):
@@ -53,45 +72,43 @@ def dense_run(chip_smoke):
                            n_planes=128, window=7, downscale=1,
                            cost_threshold=0.4, uniqueness_threshold=0.99,
                            lr_check=True, lr_tau=2.0)
-    return pss.run, pss
+    return pss.run, (lambda: pss.timer.times)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("match", "dense"), default="match",
-                    help="which of chip_smoke.py's paths to profile")
-    ap.add_argument("--top", type=int, default=25,
-                    help="device kernels to list")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("profile_torch_match: no CUDA device")
-    sys.path.insert(0, str(REPO))
-    import chip_smoke
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    make = matcher_run if args.path == "match" else dense_run
-    run, owner = make(chip_smoke)
-    run()                                      # cold: builds, cuDNN plans
-    torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
+def device_kernels(prof) -> list:
+    """The run's device kernels and copies, most device time first (the
+    stages' ranges also appear on the device timeline: not kernels)."""
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in STAGES]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return kernels
+
+
+def stage_device_ms(prof) -> dict:
+    """Device time of the kernels launched inside each stage's range (the
+    host-side range, whose children's kernels the profiler sums)."""
+    out = {}
+    for e in prof.events():
+        if e.name in STAGES and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            t = getattr(e, "device_time_total", None)
+            if t is None:                       # older torch
+                t = e.cuda_time_total
+            out[e.name] = out.get(e.name, 0.0) + t / 1e3
+    return out
+
+
+def report(prof, wall: float, stages: dict, args) -> dict:
+    """Print the kernel and op tables of a full profile; return the
+    numbers of the JSON line."""
+    kernels = device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
-    print(chip_smoke.card_line())
-    print(f"warm {args.path} wall {wall:.4f} s, stages {owner.timer.times}")
+    print(f"warm {args.path} wall {wall:.4f} s, stages {stages}")
     print(f"{'device ms':>10} {'calls':>6}  kernel")
-    own = ("nms_border_kernel", "masked_attention_kernel", "sweep_kernel")
     for i, e in enumerate(kernels):
         # the top of the list, and the port's own kernels wherever they are
-        if i < args.top or any(name in e.key for name in own):
+        if i < args.top or any(name in e.key for name in OWN):
             print(f"{e.self_device_time_total / 1e3:10.3f} {e.count:6d}  "
                   f"{e.key[:110]}")
     # the PyTorch ops that launched the most device time, by input shape
@@ -103,13 +120,91 @@ def main() -> None:
     for e in ops[:args.top]:
         print(f"{e.self_device_time_total / 1e3:10.3f} {e.count:6d}  "
               f"{e.key} {str(e.input_shapes)[:100]}")
-    print(json.dumps({
-        "path": args.path, "wall_s": wall, "device_busy_s": busy_us / 1e6,
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-        "stages_s": owner.timer.times,
-        "kernels_listed_share": sum(e.self_device_time_total
-                                    for e in kernels[:args.top]) / busy_us,
-    }))
+    return {"path": args.path, "wall_s": wall,
+            "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "stages_s": stages,
+            "kernels_listed_share": sum(e.self_device_time_total
+                                        for e in kernels[:args.top])
+            / max(busy_us, 1.0)}
+
+
+def profile_season(chip_smoke, args) -> dict:
+    from icepy4d_tpu_torch.pipeline import Pipeline
+
+    tmp = tempfile.TemporaryDirectory()
+    _, cfg = chip_smoke.season_config(torch.device("cuda"), tmp.name,
+                                      n_epochs=3)
+    pipe = Pipeline(cfg)
+    full = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   record_shapes=True)
+    light = profile(activities=[ProfilerActivity.CUDA])
+    windows = (full, light)
+    spans = []                  # [start, end] of each traced epoch
+
+    def on_epoch(epoch):
+        # epoch 0 is cold; 1 runs under `full`, 2 under `light`; each
+        # span leaves out the profilers' own start and stop
+        torch.cuda.synchronize()
+        if spans:
+            spans[-1][1] = time.perf_counter()
+            windows[len(spans) - 1].stop()
+        if len(spans) < len(windows):
+            windows[len(spans)].start()
+            spans.append([time.perf_counter(), None])
+
+    pipe.run(on_epoch=on_epoch)
+    tmp.cleanup()
+    (a1, b1), (a2, b2) = spans
+    out = report(full, b1 - a1, pipe.stage_times[1], args)
+    stages_ms = stage_device_ms(full)
+    print("device ms by stage: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages_ms.items())
+        + f"; host {out['wall_s'] * 1e3 - out['device_busy_s'] * 1e3:.3f} "
+        "ms of the wall time without device work")
+    wall2 = b2 - a2
+    busy2 = sum(e.self_device_time_total
+                for e in device_kernels(light)) / 1e6
+    print(f"epoch 2 under CUDA-only tracing: wall {wall2:.4f} s, device "
+          f"busy {busy2:.4f} s, stages {pipe.stage_times[2]}")
+    out.update(stage_device_ms=stages_ms, light={
+        "wall_s": wall2, "device_busy_s": busy2,
+        "device_idle_share": 1.0 - busy2 / wall2,
+        "stages_s": pipe.stage_times[2]})
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("match", "dense", "season"),
+                    default="match",
+                    help="which of chip_smoke.py's paths to profile")
+    ap.add_argument("--top", type=int, default=25,
+                    help="device kernels to list")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_match: no CUDA device")
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(chip_smoke.card_line())
+    if args.path == "season":
+        out = profile_season(chip_smoke, args)
+    else:
+        run, stages = (matcher_run if args.path == "match"
+                       else dense_run)(chip_smoke)
+        run()                                  # cold: builds, cuDNN plans
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out = report(prof, wall, stages(), args)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -26,7 +26,10 @@ def _imports(path: Path):
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
                          + [REPO / "chip_smoke.py",
                             REPO / "scripts" / "profile_torch_match.py",
-                            REPO / "scripts" / "time_torch_kernels.py"],
+                            REPO / "scripts" / "degensac_seeds.py",
+                            REPO / "scripts" / "time_torch_kernels.py",
+                            # the season renderer chip_smoke.py imports
+                            REPO / "tests" / "torch_port_inputs.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_forbidden_import(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
@@ -88,3 +91,20 @@ def test_cuda_tensor_without_card_raises_not_falls_back(no_cuda):
     rect = torch.zeros((8, 8), device="meta")
     with pytest.raises(ValueError):
         dense.disparity_sweep(rect, rect, 0.0, 4.0, n_disp=5)
+
+
+def test_geometry_entry_points_raise_without_cuda(no_cuda):
+    from icepy4d_tpu_torch.pipeline import Pipeline
+    from icepy4d_tpu_torch.sfm import (BundleAdjustment, RelativeOrientation,
+                                       Triangulate, estimate_pose)
+
+    x = np.random.default_rng(0).uniform(0, 100, (20, 2)).astype(np.float32)
+    K = np.eye(3, dtype=np.float32)
+    for make in (lambda: RelativeOrientation([None, None], [x, x]),
+                 lambda: Triangulate([None, None], [x, x]),
+                 lambda: BundleAdjustment({}, {}, np.zeros((0, 3))),
+                 lambda: estimate_pose(x, x, K, K),
+                 lambda: Pipeline({"paths": {"image_dir": "img",
+                                             "results_dir": "res"}})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()

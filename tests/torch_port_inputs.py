@@ -4,8 +4,12 @@ Everything is made with numpy from a seed, so the JAX package and the
 PyTorch port receive the same arrays and parameter trees.
 """
 
+from pathlib import Path
+
 import cv2
 import numpy as np
+
+REPO_WEIGHTS = Path(__file__).resolve().parents[1] / "weights"
 
 DX, DY = 16, 8   # ground-truth shift of the synthetic pair (8-px aligned)
 
@@ -205,3 +209,239 @@ def stereo_rig(h: int, w: int, f: float, baseline: float, Z: float,
     tex = plane_texture(h, w, seed)
     return (K, E0, E1, render_plane(tex, K, E0, Z, h, w),
             render_plane(tex, K, E1, Z, h, w))
+
+
+SEASON_ORIGIN = np.array([500.0, 1200.0, 300.0])   # world position of the scene, m
+SEASON_DEPTH = 100.0           # m from the cameras to the rock wall
+SEASON_FLOW_PX = 6.0           # px an epoch the glacier tongue moves sideways
+SEASON_SEED = 0                # seed of the faces' textures
+SEASON_PNG_COMPRESSION = 1     # cv2's fastest PNG setting
+
+
+def _look_at(C, target) -> np.ndarray:
+    """World -> camera rotation of a camera at C looking at `target`
+    (world Z up, image y down)."""
+    z = np.asarray(target, np.float64) - C
+    z /= np.linalg.norm(z)
+    x = np.cross(z, [0.0, 0.0, 1.0])
+    x /= np.linalg.norm(x)
+    return np.stack([x, np.cross(z, x), z])
+
+
+class StereoSeason:
+    """A synthetic stereo season of a layered, textured scene.
+
+    Two parallel cameras with focal f (px) stand `baseline` m apart
+    along X and look along +Y at three textured faces in a frame with Z
+    up: a rock wall at SEASON_DEPTH (stable ground, it carries the
+    targets), a glacier tongue at about 0.9 x that depth that flows
+    sideways by SEASON_FLOW_PX pixels an epoch, and two boulders at
+    about 0.8 x that depth.
+    Each face's depth is set so that its disparity is a multiple of 8 px
+    (64, 72 and 80 px at f = 640 px and a baseline of a tenth of the
+    depth): the two views of a face differ by a shift of whole 8-px
+    cells, which the bundled SuperPoint and LightGlue match to the
+    pixel. (Their keypoints follow SuperPoint's 8-px cell grid: under
+    any other shift, a half-pixel one or a 1% warp, most matches are off
+    by one to seven pixels; and their matches follow the dominant
+    motion, so faces whose disparities differ by more than a few cells
+    go unmatched. Either is too noisy for a two-view essential matrix.)
+    The faces' depths give the pair its parallax. The texture is
+    band-limited noise of about `cell_px` px a cell, a different one on each
+    face. Frames are ray-cast with torch on `device`, so the same code
+    renders the tests' small frames on the CPU and full-size frames on
+    the card. World coordinates are the scene's plus SEASON_ORIGIN.
+    """
+
+    LABELS = ("T1", "T2", "T3", "T4", "T5")
+
+    def __init__(self, h: int, w: int, f: float, baseline: float = 10.0,
+                 cell_px: float = 10.0, device="cpu"):
+        import torch
+
+        self.h, self.w, self.f = h, w, f
+        self.depth = depth = SEASON_DEPTH
+        flow_px = SEASON_FLOW_PX
+        self.device = torch.device(device)
+        self.K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]],
+                          np.float32)
+        self.centers = np.array([[-baseline / 2, 0.0, 0.0],
+                                 [baseline / 2, 0.0, 0.0]])
+        self.R = [_look_at(C, C + [0.0, depth, 0.0]) for C in self.centers]
+        # faces, far to near, at disparities of whole 8-px cells
+        fb = f * baseline
+        self.layers = tuple(fb / max(8, 8 * round(fb / (8 * depth * r)))
+                            for r in (1.0, 0.9, 0.8))
+        self.flow = flow_px * depth / f          # m an epoch, glacier layer
+        self.texel = cell_px / 8.0 / f * 100.0   # per 100 m of depth
+        # texture square, in m at 100 m of depth: the widest view, the
+        # baseline and three epochs of flow
+        self.extent = 0.5 * max(w, h) / f * 100.0 + 2 * baseline \
+            + 3 * 100.0 / f * flow_px + 4.0
+        n = int(2 * self.extent / self.texel) + 8
+        g = torch.Generator(device="cpu").manual_seed(SEASON_SEED)
+        # one texture per face: a shared texture would repeat across
+        # the faces at a constant image offset
+        low = torch.rand((1, 3, n // 8 + 3, n // 8 + 3), generator=g)
+        self.tex = torch.nn.functional.interpolate(
+            low.to(self.device), size=(n, n), mode="bicubic",
+            align_corners=True).clamp(0.0, 1.0)
+
+    def _mask(self, k: int, X, Z):
+        """Whether scene point (X, Z) of layer k lies on its face."""
+        d = self.depth
+        if k == 0:
+            return X == X
+        if k == 1:                                # the tongue
+            return (Z.abs() < 0.16 * d) & (X > -0.3 * d) \
+                & (X < 0.5 * d)
+        return ((X + 0.2 * d) ** 2 + (Z + 0.12 * d) ** 2 < (0.09 * d) ** 2) \
+            | ((X - 0.25 * d) ** 2 + (Z - 0.15 * d) ** 2 < (0.07 * d) ** 2)
+
+    def surface_distance(self, P: np.ndarray) -> np.ndarray:
+        """Distance (m) of world points to the nearest face they lie on."""
+        import torch
+
+        Q = torch.as_tensor(np.asarray(P, np.float64) - SEASON_ORIGIN)
+        out = torch.full((len(Q),), float("inf"), dtype=torch.float64)
+        for k, Y in enumerate(self.layers):
+            on = self._mask(k, Q[:, 0], Q[:, 2])
+            out = torch.where(on, torch.minimum(out, (Q[:, 1] - Y).abs()),
+                              out)
+        return out.numpy()
+
+    def extrinsics(self, i: int) -> np.ndarray:
+        """World -> camera 4x4 of camera i in world coordinates."""
+        E = np.eye(4)
+        E[:3, :3] = self.R[i]
+        E[:3, 3] = -self.R[i] @ (self.centers[i] + SEASON_ORIGIN)
+        return E
+
+    def render(self, i: int, epoch: int) -> np.ndarray:
+        """Camera i's uint8 frame of the given epoch."""
+        import torch
+
+        dev = self.device
+        R = torch.tensor(self.R[i], dtype=torch.float32, device=dev)
+        C = [float(c) for c in self.centers[i]]
+        v, u = torch.meshgrid(torch.arange(self.h, device=dev,
+                                           dtype=torch.float32),
+                              torch.arange(self.w, device=dev,
+                                           dtype=torch.float32),
+                              indexing="ij")
+        rx = (u - float(self.K[0, 2])) / self.f
+        ry = (v - float(self.K[1, 2])) / self.f
+        d = [rx * R[0, j] + ry * R[1, j] + R[2, j] for j in range(3)]
+        n = self.tex.shape[-1]
+        img = None
+        for k, Y in enumerate(self.layers):         # far to near
+            t = (Y - C[1]) / d[1]
+            X, Z = C[0] + t * d[0], C[2] + t * d[2]
+            s = 100.0 / Y                           # ~10 px cells
+            tx = (X - (self.flow * epoch if k == 1 else 0.0)) * s
+            grid = torch.stack([(tx + self.extent) / self.texel,
+                                (self.extent - Z * s) / self.texel], -1)
+            val = torch.nn.functional.grid_sample(
+                self.tex[:, k:k + 1], (grid / (n - 1) * 2 - 1)[None],
+                align_corners=True, padding_mode="reflection")[0, 0]
+            img = val if img is None else torch.where(
+                self._mask(k, X, Z), val, img)
+        return (img * 255).round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+    def targets(self) -> tuple[np.ndarray, list]:
+        """World coordinates (n, 3) of the targets, three on the rock
+        wall and one on each boulder (both stable; two depths keep the
+        focal length apart from the distance), and each camera's (n, 2)
+        pixel coordinates of them; each is checked to be in view and
+        unoccluded in both frames."""
+        import torch
+
+        d = self.depth
+        X = np.array([-0.35, 0.4, -0.05, -0.2, 0.25]) * d
+        Z = np.array([0.3, -0.3, 0.3, -0.12, 0.15]) * d
+        k = np.array([0, 0, 0, 2, 2])
+        Y = np.array(self.layers)[k]
+        P = np.stack([X * Y / d, Y, Z * Y / d], 1)
+        px = []
+        for i, C in enumerate(self.centers):
+            for j in (1, 2):                        # nearer faces
+                s = (self.layers[j] - C[1]) / (P[:, 1] - C[1])
+                Q = torch.as_tensor(C + s[:, None] * (P - C))
+                hit = self._mask(j, Q[:, 0], Q[:, 2]).numpy()
+                if np.any(hit & (j > k)):
+                    raise ValueError(f"a target is occluded in camera {i}")
+            E = self.extrinsics(i)
+            Pw = P + SEASON_ORIGIN
+            pc = Pw @ E[:3, :3].T + E[:3, 3]
+            uv = pc[:, :2] / pc[:, 2:] * self.f + self.K[:2, 2]
+            if np.any(uv < 8) or np.any(uv > [self.w - 8, self.h - 8]):
+                raise ValueError(f"a target is out of camera {i}'s frame")
+            px.append(uv)
+        return P + SEASON_ORIGIN, px
+
+    def write(self, root, n_epochs: int = 3, max_keypoints: int = 512,
+              options: dict | None = None) -> dict:
+        """Write the season (frames with mtimes one hour apart,
+        calibrations, target tables) under `root` and return the
+        pipeline config that processes it."""
+        import csv
+        import os
+        import time
+        from pathlib import Path
+
+        root = Path(root)
+        base = time.mktime((2022, 7, 28, 10, 0, 0, 0, 0, -1))
+        P, px = self.targets()
+        (root / "calib").mkdir(parents=True, exist_ok=True)
+        (root / "targets").mkdir(parents=True, exist_ok=True)
+        with open(root / "targets" / "target_world.csv", "w",
+                  newline="") as fh:
+            wr = csv.writer(fh)
+            wr.writerow(["label", "X", "Y", "Z"])
+            wr.writerows([[lab, *(repr(float(v)) for v in p)]
+                          for lab, p in zip(self.LABELS, P)])
+        for i, cam in enumerate(("cam1", "cam2")):
+            fx, cx, fy, cy = (float(v) for v in self.K[[0, 0, 1, 1],
+                                                      [0, 2, 1, 2]])
+            (root / "calib" / f"{cam}.txt").write_text(
+                f"{self.w} {self.h} {fx!r} 0 {cx!r} 0 {fy!r} {cy!r} 0 0 1 "
+                "0 0 0 0\n")
+            d = root / "img" / cam
+            d.mkdir(parents=True, exist_ok=True)
+            for e in range(n_epochs):
+                path = d / f"IMG_{i + 1}{e:03d}.png"
+                import cv2 as _cv2
+
+                _cv2.imwrite(str(path), self.render(i, e),
+                             [_cv2.IMWRITE_PNG_COMPRESSION,
+                              SEASON_PNG_COMPRESSION])
+                os.utime(path, (base + 3600 * e, base + 3600 * e))
+                with open(root / "targets" / f"{path.stem}.csv", "w",
+                          newline="") as fh:
+                    wr = csv.writer(fh)
+                    wr.writerow(["label", "x", "y"])
+                    wr.writerows([[lab, repr(float(x)), repr(float(y))]
+                                  for lab, (x, y) in zip(self.LABELS,
+                                                         px[i])])
+        return {
+            "paths": {"image_dir": str(root / "img"),
+                      "calibration_dir": str(root / "calib"),
+                      "results_dir": str(root / "res")},
+            "proc": {"epoch_to_process": "all", "do_orientation": True,
+                     "do_ba": True, "do_recovery": True,
+                     "do_tracking": False, "do_dense": False,
+                     "save_checkpoints": True, "use_mtime_fallback": True},
+            "matching": {"matcher": "lightglue", "quality": "high",
+                         "tile_selection": "none",
+                         "max_keypoints": max_keypoints,
+                         "geometric_verification": "pydegensac",
+                         "options": dict(options or {})},
+            "georef": {"camera_centers_world":
+                       (self.centers + SEASON_ORIGIN).tolist(),
+                       "target_dir": "targets",
+                       "targets_to_use": list(self.LABELS),
+                       "target_world_file": "target_world.csv"},
+            # the stations' centres are surveyed to 2 cm
+            "ba": {"camera_location_accuracy": 0.02},
+            "other": {"pydegensac_threshold": 1.0},
+        }

@@ -53,15 +53,33 @@ anything in it fails:
    apart, five surveyed targets on stable faces, mtime timestamps)
    through the port's Pipeline(cfg).run() with bundled weights, 2x2
    EXHAUSTIVE tiles with 200 px overlap, 4096 keypoints a tile,
-   PYDEGENSAC at 1 px, orientation, AO and BA at the pipeline's
-   defaults with the "metashape" intrinsics; every epoch ok with no
+   PYDEGENSAC at 1 px, temporal tracking, orientation, AO and BA at the
+   pipeline's defaults with the "metashape" intrinsics, and dense
+   reconstruction at the pipeline's defaults; every epoch ok with no
    recovery and within SEASON_GATES (BA RMSE <= 0.15 px, >= 4500 tie
    points, relative rotation within 0.01 degrees of the truth, median
-   distance of the georeferenced points to the true faces <= 0.025 m),
-   each epoch exactly phase 4's NMS and attention launches, both CSV
-   sinks and three checkpoints; prints the cold and warm epoch times by
-   stage;
-8. times: each kernel, its plain version, the library call that
+   distance of the georeferenced points to the true faces <= 0.025 m,
+   median displacement of the tracks on the stable faces <= 1 px, >=
+   11.5 M dense points whose median distance to the true faces is <=
+   0.15 m), both CSV sinks,
+   three checkpoints and a dense PLY an epoch. Launches an epoch: phase
+   4's NMS launches (the tracking reads the pair match's cached
+   features and extracts nothing), phase 4's attention launches, plus on
+   epochs 1 and 2 one seeded forward's (both cameras' 2 x 4 tile pairs
+   ride one LightGlue forward: 4 launches a layer, 9 layers, one chunk
+   of 8 pairs at 4096 keypoints, so 36 more), and 2 sweep launches;
+   prints the cold and warm epoch times by stage;
+8. SIFT season: the same frames through Pipeline(cfg).run() with the
+   real-season matcher settings of bench.py (SIFT, quality high, no
+   tiles, 16384 keypoints, one orientation, PYDEGENSAC at 2 px), the
+   GCP prior from the surveyed centres (so the guided rematch runs on
+   it), tracking on, the "metashape" BA trimmed toward 0.5 px; every
+   epoch ok with no recovery, within SIFT_GATES (BA RMSE <= 0.25 px,
+   >= 5000 putatives and verified matches, >= 12000 tie points,
+   relative rotation within 0.075 degrees, median distance to the faces
+   <= 0.15 m), and no kernel launch at all (SIFT and the
+   nearest-neighbour matcher run none of the three);
+9. times: each kernel, its plain version, the library call that
    computes the same function (where there is one) and the card's lower
    bound, printed as one JSON line.
 
@@ -94,8 +112,27 @@ SEASON_KEYPOINTS = 4096        # keypoints a tile on the season path
 # what two H100 runs of this season read: BA rmse 0.044-0.052 px,
 # 5540-5655 tie points, relative rotation 0.0022-0.0028 degrees off the
 # truth, median distance to the true faces 3-8 mm.
+# With tracking and dense on, three H100 runs read: tracks on the stable
+# faces 0.0 px off, a dense cloud of 14.62-14.75 M points 5.2-5.7 cm
+# from the faces; the tracks gate is the 1 px bar of the real season.
 SEASON_GATES = {"rmse_px": 0.15, "points": 4500, "rotation_deg": 0.01,
-                "surface_m": 0.025}
+                "surface_m": 0.025, "track_px": 1.0,
+                "dense_points": 11_500_000, "dense_surface_m": 0.15}
+# Gates of every SIFT season epoch, about 3x (20% for the points) off
+# what the first H100 run read: BA rmse 0.076-0.081 px, 14962-14968
+# putatives, 14958-14967 verified, 14940-31118 tie points, relative
+# rotation 0.0029-0.0249 degrees off, 6-47 mm to the faces. They sit
+# well inside the parity bar (0.5 px, BASELINE.md) and bench.py's floor
+# (100 putatives, 50 verified).
+SIFT_GATES = {"rmse_px": 0.25, "putative": 5000, "verified": 5000,
+              "points": 12000, "rotation_deg": 0.075, "surface_m": 0.15}
+SIFT_MATCHING = {"matcher": "sift", "quality": "high",
+                 "tile_selection": "none", "max_keypoints": 16384,
+                 "options": {"dual_orientation": False}}
+SIFT_BA = {"camera_location_accuracy": 0.5, "fit_f": True,
+           "free_intrinsics": "metashape", "trim_target_rmse_px": 0.5,
+           "trim_frac": 0.1, "trim_rounds": 6, "max_iters": 60,
+           "min_points": 8}
 TIE = 1e-5                     # runner-up minus best cost of a near tie
 # f32 operations per pixel and hypothesis of the disparity sweep, each
 # box filter counted as separable running sums: the shift's lerp 3, the
@@ -386,90 +423,211 @@ def season_config(dev, root, n_epochs: int,
     return scene, cfg
 
 
-def season_path(dev, reset_counts, read_counts, per_match: dict) -> dict:
-    """Phase 7: the port's Pipeline on a synthetic full-size season;
-    returns what the JSON line reports."""
+def rotation_error_deg(epoch, cams) -> float:
+    """Angle of the epoch's relative rotation (true: the identity)."""
+    R0, R1 = (np.asarray(epoch.cameras[c].R, np.float64) for c in cams)
+    rel = R1 @ R0.T
+    s = np.linalg.norm([rel[2, 1] - rel[1, 2], rel[0, 2] - rel[2, 0],
+                        rel[1, 0] - rel[0, 1]]) / 2
+    return float(np.degrees(np.arctan2(s, (np.trace(rel) - 1) / 2)))
+
+
+def run_season(pipe, reset_counts, read_counts):
+    """Run the pipeline's season with every launch count set to 0 before
+    it; returns (epochs, seconds, each epoch's launch counts)."""
+    counts = []
+
+    def on_epoch(epoch):
+        counts.append(read_counts())
+        reset_counts()
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    epochs = list(pipe.run(on_epoch=on_epoch))
+    return epochs, time.perf_counter() - t0, counts
+
+
+def season_stats(scene, pipe, epochs) -> list:
+    stats = []
+    for e in epochs:
+        stats.append(dict(e.quality["stats"], status=e.quality["status"],
+                          flags=e.quality["flags"], n_points=len(e.points),
+                          rel_rotation_err_deg=rotation_error_deg(
+                              e, pipe.cams),
+                          median_surface_dist_m=float(np.median(
+                              scene.surface_distance(e.points.to_numpy())))))
+    return stats
+
+
+def track_motion(scene, prev, cur, cam: str) -> dict:
+    """Features of `cur` tracked from `prev`: how many, and the median
+    displacement (px) in camera `cam` of those whose triangulated point
+    lies on the stable faces (rock wall, boulders) and on the tongue."""
+    ids0 = prev.features[cam].track_ids_to_numpy()
+    ids1 = cur.features[cam].track_ids_to_numpy()
+    common, i0, i1 = np.intersect1d(ids0, ids1, return_indices=True)
+    disp = np.linalg.norm(cur.features[cam].kpts_to_numpy()[i1]
+                          - prev.features[cam].kpts_to_numpy()[i0], axis=1)
+    _, ip, ic = np.intersect1d(cur.points.track_ids_to_numpy(), common,
+                               return_indices=True)
+    face = scene.face_index(cur.points.to_numpy()[ip])
+    stable = disp[ic][(face == 0) | (face == 2)]
+    tongue = disp[ic][face == 1]
+
+    def med(a):
+        return float(np.median(a)) if len(a) else float("nan")
+
+    return {"tracks": int(len(common)), "stable": int(len(stable)),
+            "tongue": int(len(tongue)), "stable_median_px": med(stable),
+            "tongue_median_px": med(tongue)}
+
+
+def season_path(dev, reset_counts, read_counts, scene, base_cfg: dict,
+                expected: list) -> dict:
+    """Phase 7: the port's Pipeline with tracking and dense on; each
+    epoch's launch counts must equal `expected[epoch]`. Returns what the
+    JSON line reports."""
+    import copy
     import csv
 
     from icepy4d_tpu_torch.pipeline import Pipeline
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        scene, cfg = season_config(dev, tmp, n_epochs=3)
-        write_s = time.perf_counter() - t0
+    cfg = copy.deepcopy(base_cfg)
+    res = Path(cfg["paths"]["image_dir"]).parent / "res_lightglue"
+    cfg["paths"]["results_dir"] = str(res)
+    cfg["proc"].update(do_tracking=True, do_dense=True)
+    pipe = Pipeline(cfg)
+    epochs, run_s, counts = run_season(pipe, reset_counts, read_counts)
+    sinks = {}
+    for name in ("residuals_image.csv", "estimated_cameras.csv"):
+        with open(res / name) as f:
+            sinks[name] = len(list(csv.reader(f)))
+    n_ckpt = len(list((res / "epochs").rglob("*.pickle")))
+    n_ply = len(list((res / "epochs").rglob("dense_*.ply")))
 
-        pipe = Pipeline(cfg)
-        counts = []
-
-        def on_epoch(epoch):
-            counts.append(read_counts())
-            reset_counts()
-
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        epochs = list(pipe.run(on_epoch=on_epoch))
-        run_s = time.perf_counter() - t0
-        res = Path(cfg["paths"]["results_dir"])
-        sinks = {}
-        for name in ("residuals_image.csv", "estimated_cameras.csv"):
-            with open(res / name) as f:
-                sinks[name] = len(list(csv.reader(f)))
-        n_ckpt = len(list((res / "epochs").rglob("*.pickle")))
-
-    stats, rot_deg, surf_m = [], [], []
+    stats = season_stats(scene, pipe, epochs)
+    tracks = [track_motion(scene, a, b, pipe.cams[0])
+              for a, b in zip(epochs, epochs[1:])]
+    dense = []
     for e in epochs:
-        R0, R1 = (np.asarray(e.cameras[c].R, np.float64) for c in pipe.cams)
-        rel = R1 @ R0.T                           # true: the identity
-        s = np.linalg.norm([rel[2, 1] - rel[1, 2], rel[0, 2] - rel[2, 0],
-                            rel[1, 0] - rel[0, 1]]) / 2
-        rot_deg.append(float(np.degrees(np.arctan2(s, (np.trace(rel) - 1)
-                                                   / 2))))
-        surf_m.append(float(np.median(scene.surface_distance(
-            e.points.to_numpy()))))
-        stats.append(dict(e.quality["stats"], status=e.quality["status"],
-                          flags=e.quality["flags"],
-                          n_points=len(e.points)))
-    out = {"write_s": write_s, "run_s": run_s,
+        pts = e.point_cloud.points
+        d = scene.surface_distance(pts[::max(len(pts) // 200000, 1)])
+        dense.append({"points": len(pts),
+                      "median_surface_dist_m": float(np.median(d))})
+    out = {"run_s": run_s,
            "stage_times_s": {str(k): v for k, v in pipe.stage_times.items()},
-           "epochs": stats, "rel_rotation_err_deg": rot_deg,
-           "median_surface_dist_m": surf_m, "launches": counts,
-           "sink_rows": sinks, "checkpoints": n_ckpt}
-    log(f"season path: {len(epochs)} epochs of {W_IMG}x{H_IMG} pairs, "
-        f"frames written in {write_s:.1f} s, run {run_s:.1f} s")
+           "epochs": stats, "tracks": tracks, "dense": dense,
+           "launches": counts, "sink_rows": sinks, "checkpoints": n_ckpt,
+           "dense_ply": n_ply}
+    log(f"season path: {len(epochs)} epochs of {W_IMG}x{H_IMG} pairs with "
+        f"tracking and dense, run {run_s:.1f} s")
     for ep, t in pipe.stage_times.items():
         log(f"  epoch {ep} ({'cold' if ep == 0 else 'warm'}): "
             + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
                         f"{k} {v}" for k, v in t.items()))
-    for st, r, d, c in zip(stats, rot_deg, surf_m, counts):
+    for st, c, dn in zip(stats, counts, dense):
         log(f"  {st['status']} {st['flags']}: putative {st['n_putative']}, "
             f"verified {st['n_matches']}, orientation inliers "
             f"{st['n_orientation_inliers']}, BA rmse "
             f"{st.get('ba_rmse_px', float('nan')):.4f} px, points "
-            f"{st['n_points']}, relative rotation error {r:.5f} deg, "
-            f"median surface distance {d:.4f} m, launches {c}")
-    for st, r, d, c in zip(stats, rot_deg, surf_m, counts):
-        if st["status"] != "ok" or st["flags"] or "recovered" in st:
-            raise AssertionError(f"season epoch not ok: {st}")
-        if not st.get("ba_rmse_px", np.inf) <= SEASON_GATES["rmse_px"]:
-            raise AssertionError(f"BA rmse {st.get('ba_rmse_px')} > "
-                                 f"{SEASON_GATES['rmse_px']} px")
+            f"{st['n_points']}, relative rotation error "
+            f"{st['rel_rotation_err_deg']:.5f} deg, median surface distance "
+            f"{st['median_surface_dist_m']:.4f} m, dense cloud "
+            f"{dn['points']} points at {dn['median_surface_dist_m']:.4f} m, "
+            f"launches {c}")
+    for i, tr in enumerate(tracks, 1):
+        log(f"  tracks into epoch {i}: {tr}")
+    for st, c, want, dn in zip(stats, counts, expected, dense):
+        check_epoch(st, SEASON_GATES)
         if st["n_points"] < SEASON_GATES["points"]:
             raise AssertionError(f"{st['n_points']} tie points < "
                                  f"{SEASON_GATES['points']}")
-        if not r <= SEASON_GATES["rotation_deg"]:
-            raise AssertionError(f"relative rotation error {r} deg > "
-                                 f"{SEASON_GATES['rotation_deg']}")
-        if not d <= SEASON_GATES["surface_m"]:
-            raise AssertionError(f"median surface distance {d} m > "
-                                 f"{SEASON_GATES['surface_m']}")
-        if c != per_match:
-            raise AssertionError(f"epoch launches {c} != phase 4's "
-                                 f"{per_match}")
-    if len(epochs) != 3 or n_ckpt != 3 or any(
+        if dn["points"] < SEASON_GATES["dense_points"] or not \
+                dn["median_surface_dist_m"] <= SEASON_GATES["dense_surface_m"]:
+            raise AssertionError(f"dense cloud {dn} against "
+                                 f"{SEASON_GATES}")
+        if c != want:
+            raise AssertionError(f"epoch launches {c} != {want}")
+    for tr in tracks:
+        if not tr["stable"] or not tr["stable_median_px"] <= \
+                SEASON_GATES["track_px"]:
+            raise AssertionError(f"tracks on the stable faces: {tr}")
+    if len(epochs) != 3 or n_ckpt != 3 or n_ply != 3 or any(
             n != 4 for n in sinks.values()):
         raise AssertionError(f"{len(epochs)} epochs, {n_ckpt} checkpoints, "
-                             f"sink rows {sinks}")
+                             f"{n_ply} dense PLYs, sink rows {sinks}")
+    return out
+
+
+def check_epoch(st: dict, gates: dict) -> None:
+    """An epoch ok without recovery, within the gates' BA RMSE, relative
+    rotation and distance to the faces."""
+    if st["status"] != "ok" or st["flags"] or "recovered" in st:
+        raise AssertionError(f"season epoch not ok: {st}")
+    if not st.get("ba_rmse_px", np.inf) <= gates["rmse_px"]:
+        raise AssertionError(f"BA rmse {st.get('ba_rmse_px')} > "
+                             f"{gates['rmse_px']} px")
+    if not st["rel_rotation_err_deg"] <= gates["rotation_deg"]:
+        raise AssertionError(f"relative rotation error "
+                             f"{st['rel_rotation_err_deg']} deg > "
+                             f"{gates['rotation_deg']}")
+    if not st["median_surface_dist_m"] <= gates["surface_m"]:
+        raise AssertionError(f"median surface distance "
+                             f"{st['median_surface_dist_m']} m > "
+                             f"{gates['surface_m']}")
+
+
+def sift_season_path(dev, reset_counts, read_counts, scene,
+                     base_cfg: dict) -> dict:
+    """Phase 8: the same frames through the real season's SIFT settings
+    with the GCP prior and tracking; no kernel may launch."""
+    import copy
+
+    from icepy4d_tpu_torch.pipeline import Pipeline
+
+    cfg = copy.deepcopy(base_cfg)
+    cfg["paths"]["results_dir"] = str(
+        Path(cfg["paths"]["image_dir"]).parent / "res_sift")
+    cfg["proc"].update(do_tracking=True, save_checkpoints=False)
+    cfg["matching"] = copy.deepcopy(SIFT_MATCHING)
+    cfg["ba"] = dict(SIFT_BA)
+    cfg["other"] = {"pydegensac_threshold": 2.0}
+    pipe = Pipeline(cfg)
+    epochs, run_s, counts = run_season(pipe, reset_counts, read_counts)
+    priors = [pipe._gcp_prior(e) is not None for e in epochs]
+    stats = season_stats(scene, pipe, epochs)
+    tracks = [track_motion(scene, a, b, pipe.cams[0])
+              for a, b in zip(epochs, epochs[1:])]
+    out = {"run_s": run_s,
+           "stage_times_s": {str(k): v for k, v in pipe.stage_times.items()},
+           "epochs": stats, "tracks": tracks, "launches": counts,
+           "gcp_prior": priors}
+    log(f"SIFT season: {len(epochs)} epochs, run {run_s:.1f} s")
+    for ep, t in pipe.stage_times.items():
+        log(f"  epoch {ep} ({'cold' if ep == 0 else 'warm'}): "
+            + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                        f"{k} {v}" for k, v in t.items()))
+    for st, c in zip(stats, counts):
+        log(f"  {st['status']} {st['flags']}: putative {st['n_putative']}, "
+            f"verified {st['n_matches']}, orientation inliers "
+            f"{st['n_orientation_inliers']}, BA rmse "
+            f"{st.get('ba_rmse_px', float('nan')):.4f} px, points "
+            f"{st['n_points']}, relative rotation error "
+            f"{st['rel_rotation_err_deg']:.5f} deg, median surface distance "
+            f"{st['median_surface_dist_m']:.4f} m, launches {c}")
+    for i, tr in enumerate(tracks, 1):
+        log(f"  tracks into epoch {i}: {tr}")
+    for st, c in zip(stats, counts):
+        check_epoch(st, SIFT_GATES)
+        if st["n_putative"] < SIFT_GATES["putative"] or \
+                st["n_matches"] < SIFT_GATES["verified"] or \
+                st["n_points"] < SIFT_GATES["points"]:
+            raise AssertionError(f"SIFT matches below {SIFT_GATES}: {st}")
+        if any(c.values()):
+            raise AssertionError(f"SIFT epoch launched kernels: {c}")
+    if len(epochs) != 3 or not all(priors):
+        raise AssertionError(f"{len(epochs)} epochs, GCP prior {priors}")
     return out
 
 
@@ -627,6 +785,11 @@ def main() -> None:
     if launches["attention"] != 4 * n_layers * len(captured):
         raise AssertionError(f"attention kernel launched "
                              f"{launches['attention']} times")
+    # the seeded forward of a tracked epoch: both cameras' 2 x 2 tiles as
+    # 8 tile-diagonal pairs, in the matcher's pair chunks
+    k = matcher._max_keypoints
+    seed_chunk = matcher._auto_chunk(8, (k + 1) ** 2 * 4 * 4, budget=6 << 30)
+    seeded_attention = 4 * n_layers * (8 // seed_chunk)
 
     # -- 5. LightGlue with the kernel vs with the plain bf16 attention --------
     # The matcher's bf16 trunk rounds every activation to bf16, so any
@@ -733,12 +896,21 @@ def main() -> None:
     del pss, res, pts, colors, back, cams, imgs
     torch.cuda.empty_cache()
 
-    # -- 7. season path --------------------------------------------------------
-    season = season_path(dev, reset_counts, read_counts,
-                         dict(launches, sweep=0))
+    # -- 7. season path, 8. SIFT season (the same frames) ---------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scene, season_cfg = season_config(dev, tmp, n_epochs=3)
+        log(f"season frames written in {time.perf_counter() - t0:.1f} s")
+        first = dict(launches, sweep=2)
+        tracked = dict(first, attention=first["attention"] + seeded_attention)
+        season = season_path(dev, reset_counts, read_counts, scene,
+                             season_cfg, [first, tracked, tracked])
+        torch.cuda.empty_cache()
+        sift_season = sift_season_path(dev, reset_counts, read_counts, scene,
+                                       season_cfg)
     torch.cuda.empty_cache()
 
-    # -- 8. times --------------------------------------------------------------
+    # -- 9. times --------------------------------------------------------------
     heat = heat_map(nms_shape, dev)
     b, hh, ww = nms_shape
     args = (4, 4, hh, ww)
@@ -804,7 +976,7 @@ def main() -> None:
             "stages_s": dense_stages, "valid_inner": valid_inner,
             "median_rel_depth_err": depth_err, "median_abs_z_err_m": z_err,
             "sweep_shape": sweep_shape},
-        "season_path": season}))
+        "season_path": season, "sift_season_path": sift_season}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

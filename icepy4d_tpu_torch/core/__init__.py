@@ -1,5 +1,5 @@
 """Core data of the port: cameras and calibration files, images,
-features, points, targets and epochs (host containers)."""
+features, points, point clouds, targets and epochs (host containers)."""
 
 from icepy4d_tpu_torch.core.calibration import (  # noqa: F401
     Calibration,
@@ -19,5 +19,6 @@ from icepy4d_tpu_torch.core.epoch import (  # noqa: F401
 )
 from icepy4d_tpu_torch.core.features import Features  # noqa: F401
 from icepy4d_tpu_torch.core.images import Image, ImageDS, read_image  # noqa: F401
+from icepy4d_tpu_torch.core.point_cloud import PointCloud  # noqa: F401
 from icepy4d_tpu_torch.core.points import Points  # noqa: F401
 from icepy4d_tpu_torch.core.targets import Targets  # noqa: F401

@@ -2,8 +2,8 @@
 
 Counterpart of `icepy4d_tpu/core/features.py::Features`: a growable
 numpy struct-of-arrays (keypoints, descriptors, scores, track ids) with
-the reference's API. The padded device struct (`FeatureSet`) waits for
-the port of temporal tracking.
+the reference's API. The padded device struct (`FeatureSet`) is not
+ported: neither the pipeline nor the tracking uses it.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 Counterpart of `icepy4d_tpu/core/points.py::Points`: a growable numpy
 store of coordinates, colours in [0, 1] and track ids. The padded
-device struct (`PointSet`) waits for the port of temporal tracking.
+device struct (`PointSet`) is not ported: neither the pipeline nor the
+tracking uses it.
 """
 
 from __future__ import annotations

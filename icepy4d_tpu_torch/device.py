@@ -24,11 +24,14 @@ def resolve_device(device=None) -> torch.device:
 
 @contextlib.contextmanager
 def full_f32_matmul():
-    """Matrix products in full float32 (no TF32) inside the block,
-    whatever the caller set."""
-    saved = torch.backends.cuda.matmul.allow_tf32
+    """Matrix products and cuDNN convolutions in full float32 (no TF32)
+    inside the block, whatever the caller set."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -1,5 +1,6 @@
-"""Matching engine: tiled SuperPoint + LightGlue matching and geometric
-verification."""
+"""Matching engine: tiled SuperPoint + LightGlue matching, SIFT and
+SuperPoint nearest-neighbour matching, geometric verification and
+temporal tracking."""
 
 from icepy4d_tpu_torch.matching.enums import (  # noqa: F401
     GeometricVerification,
@@ -12,5 +13,11 @@ from icepy4d_tpu_torch.matching.geometric_verification import (  # noqa: F401
 from icepy4d_tpu_torch.matching.matchers import (  # noqa: F401
     ImageMatcherBase,
     LightGlueMatcher,
+    NearestNeighborMatcher,
+    SIFTMatcher,
 )
 from icepy4d_tpu_torch.matching.tiling import Tiler  # noqa: F401
+from icepy4d_tpu_torch.matching.tracking import (  # noqa: F401
+    track_features,
+    track_matches,
+)

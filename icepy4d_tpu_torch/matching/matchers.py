@@ -1,12 +1,18 @@
-"""Image matchers: SuperPoint extraction + LightGlue matching (counterpart
-of `ImageMatcherBase` and `LightGlueMatcher` in
-`icepy4d_tpu/matching/matchers.py`, static depth).
+"""Image matchers (counterpart of `ImageMatcherBase`, `LightGlueMatcher`,
+`NearestNeighborMatcher` and `SIFTMatcher` in
+`icepy4d_tpu/matching/matchers.py`; LightGlue at static depth).
 
-A tiled match runs SuperPoint once per image over a batch of tiles (in
-chunks that fit an activation budget) and LightGlue once over the batch
-of selected tile pairs. Keypoint sets are fixed-size with validity
-masks; matched rows are packed on the device and only they cross to the
-host, where keypoints are deduplicated and verified.
+A tiled match runs the extractor (SuperPoint, or SIFT for the SIFT
+matcher) once per image over a batch of tiles (in chunks that fit an
+activation budget) and the matcher once over the batch of selected tile
+pairs. Keypoint sets are fixed-size with validity masks; matched rows
+are packed on the device and only they cross to the host, where
+keypoints are deduplicated and verified.
+
+The last top-level match leaves its two images' device features in a
+cache keyed by the identities of the image objects it was given and by
+the tile signature; temporal tracking (`matching/tracking.py`) reads
+them instead of extracting the same frames again.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from itertools import product
 import numpy as np
 import torch
 
-from icepy4d_tpu_torch.device import resolve_device
+from icepy4d_tpu_torch.device import full_f32_matmul, resolve_device
 from icepy4d_tpu_torch.matching.enums import (
     GeometricVerification,
     Quality,
@@ -32,16 +38,20 @@ from icepy4d_tpu_torch.models.convert import (bundled_checkpoint,
                                               lightglue_params, load_params,
                                               superpoint_state_dict)
 from icepy4d_tpu_torch.models.lightglue import LightGlue
+from icepy4d_tpu_torch.models.sift import SIFT
 from icepy4d_tpu_torch.models.superpoint import SuperPoint
 from icepy4d_tpu_torch.ops.buckets import pad_bucket
 from icepy4d_tpu_torch.ops.image import (extract_tiles, quality_resize,
                                          rgb_to_gray)
-from icepy4d_tpu_torch.ops.topk import safe_top_k
+from icepy4d_tpu_torch.ops.topk import safe_top_k, top2_last
 from icepy4d_tpu_torch.utils.timer import AverageTimer
 
 logger = logging.getLogger("icepy4d_tpu_torch")
 
 MIN_MATCHES_PER_TILE = 5
+# similarity of a masked pair in the NN matchers: the lowest float32, as
+# in the JAX package (the ratio and lone-candidate tests read it)
+_NEG = torch.finfo(torch.float32).min
 
 
 def _round_up_pow2(n: int) -> int:
@@ -116,12 +126,22 @@ class ImageMatcherBase:
         self._max_keypoints = int(opt.get("max_keypoints", -1))
         if self._max_keypoints <= 0:
             self._max_keypoints = 4096
-        self._reset()
-        self._sp_cache: dict[tuple, SuperPoint] = {}
-        self._sp_state = superpoint_state_dict(_load_tree(
-            opt, "superpoint_params", "superpoint_weights",
-            "superpoint_synthetic.npz"))
+        self._sp_cache: dict[tuple, object] = {}
+        # device features of the last top-level match's two images, for
+        # the seeded tracking of the same frames (tracking.py)
+        self._feat_cache: dict | None = None
+        self._cache_armed = False
         self._build_models(opt)
+        kind = self._extractor_kind()
+        if kind == "superpoint":
+            self._sp_state = superpoint_state_dict(_load_tree(
+                opt, "superpoint_params", "superpoint_weights",
+                "superpoint_synthetic.npz"))
+        elif kind != "sift":
+            raise NotImplementedError(
+                f"the {kind} extractor is not ported to icepy4d_tpu_torch "
+                "yet")
+        self._reset()
 
     # -- subclass hooks ------------------------------------------------------
 
@@ -181,13 +201,30 @@ class ImageMatcherBase:
     def inlier_mask(self):
         return self._inlier_mask
 
+    def _extractor_kind(self) -> str:
+        return str(self._opt.get("extractor", "superpoint")).lower()
+
     @property
     def descriptor_dim(self) -> int:
-        return 256
+        return 128 if self._extractor_kind() == "sift" else 256
 
     # -- building blocks -----------------------------------------------------
 
-    def _superpoint(self, max_keypoints: int) -> SuperPoint:
+    def _superpoint(self, max_keypoints: int):
+        """The local-feature extractor: SuperPoint, or the parameter-free
+        SIFT when opt extractor is "sift"."""
+        if self._extractor_kind() == "sift":
+            key = ("sift", max_keypoints,
+                   float(self._opt.get("contrast_threshold", 0.015)),
+                   float(self._opt.get("edge_threshold", 12.0)),
+                   bool(self._opt.get("upsample", True)),
+                   bool(self._opt.get("dual_orientation", True)))
+            if key not in self._sp_cache:
+                self._sp_cache[key] = SIFT(
+                    max_keypoints=key[1], contrast_threshold=key[2],
+                    edge_threshold=key[3], upsample=key[4],
+                    dual_orientation=key[5], device=self.device)
+            return self._sp_cache[key]
         key = (
             max_keypoints,
             float(self._opt.get("keypoint_threshold", 0.0005)),
@@ -223,6 +260,22 @@ class ImageMatcherBase:
         chunk = self._extract_chunk(t, h, w)
         return _cat([sp.extract(tiles[i:i + chunk])
                      for i in range(0, t, chunk)])
+
+    def _store_feat_cache(self, sig: tuple, feats0: dict,
+                          feats1: dict) -> None:
+        """Publish the top-level match's device features of its two
+        images for the seeded tracking of the same frames, keyed by the
+        tile signature (n_tiles, th, tw, k) and the identities of the
+        image objects `match` was given (the held references keep those
+        identities from being reused). Armed only by the top-level
+        match: the nested low-resolution match of PRESELECTION must not
+        publish its features."""
+        if not self._cache_armed:
+            return
+        self._cache_armed = False
+        self._feat_cache = {"sig": sig, "ids": self._match_input_ids,
+                            "refs": self._match_input_refs,
+                            "feats": (feats0, feats1)}
 
     def _extract_tiled(self, g: torch.Tensor, origins: np.ndarray,
                        th: int, tw: int, max_keypoints: int) -> dict:
@@ -306,7 +359,10 @@ class ImageMatcherBase:
         def pick(a):
             return a.reshape((-1,) + a.shape[2:])[order]
 
-        return tuple(pick(a) for a in (mk0, mk1, d0, d1, s0, s1, topv))
+        # descriptors cross to the host as float16, as in the JAX package
+        # (the next epoch's tracking seeds carry that rounding)
+        return (pick(mk0), pick(mk1), pick(d0).half(), pick(d1).half(),
+                pick(s0), pick(s1), pick(topv))
 
     def _assemble(self, feats0: dict, feats1: dict, out: dict,
                   idx0: np.ndarray, idx1: np.ndarray, origins0: np.ndarray,
@@ -353,9 +409,11 @@ class ImageMatcherBase:
         # that hold enough of the coarse matches
         h = int(img0.shape[0])
         n_down = 4 if h > 8000 else 3 if h > 4000 else 2 if h > 2000 else 1
+        armed, self._cache_armed = self._cache_armed, False
         mk0, mk1, *_ = self._match_full(_downsample(img0, n_down),
                                         _downsample(img1, n_down),
                                         max_keypoints=4096)
+        self._cache_armed = armed
         scale = float(2 ** n_down)
         mk0 = mk0 * scale
         mk1 = mk1 * scale
@@ -386,6 +444,9 @@ class ImageMatcherBase:
         else:
             feats0 = self._extract(img0[None], k)
             feats1 = self._extract(img1[None], k)
+        self._store_feat_cache((1, int(img0.shape[0]), int(img0.shape[1]), k),
+                               feats0, feats1)
+        self._full_feats = (feats0, feats1)
         self.timer.update("extraction")
         size0 = (int(img0.shape[1]), int(img0.shape[0]))
         size1 = (int(img1.shape[1]), int(img1.shape[0]))
@@ -428,6 +489,8 @@ class ImageMatcherBase:
                                      self._max_keypoints)
         feats1 = self._extract_tiled(img1, tiler1.tile_origins(), th, tw,
                                      self._max_keypoints)
+        self._store_feat_cache((tiler0.n_tiles, th, tw, self._max_keypoints),
+                               feats0, feats1)
         self.timer.update("extraction")
         out = self._match_pair_batch(feats0, feats1, idx0, idx1, pair_valid,
                                      (tw, th), (tw, th))
@@ -451,6 +514,9 @@ class ImageMatcherBase:
         gv_method = config.get("geometric_verification",
                                GeometricVerification.PYDEGENSAC)
         qname = QUALITY_NAMES[quality]
+        self._cache_armed = True
+        self._match_input_ids = (id(image0), id(image1))
+        self._match_input_refs = (image0, image1)
 
         with torch.inference_mode():
             g0 = _preprocess(_to_device(image0, self.device), qname)
@@ -509,6 +575,7 @@ class LightGlueMatcher(ImageMatcherBase):
 
     opt keys: max_keypoints (default 4096), filter_threshold (0.1),
     n_layers (9), activation_dtype (LightGlue trunk, "bfloat16"),
+    adaptive (raises: the adaptive forward is not ported),
     superpoint_weights / lightglue_weights (.npz paths) or
     superpoint_params / matcher_params (parameter trees in the JAX
     layout). With no weights given, the repository's bundled
@@ -516,6 +583,11 @@ class LightGlueMatcher(ImageMatcherBase):
     """
 
     def _build_models(self, opt: dict) -> None:
+        if opt.get("adaptive", False):
+            raise NotImplementedError(
+                "matching.options.adaptive (LightGlue.match_adaptive: early "
+                "exit and point pruning, with depth_confidence and "
+                "width_confidence) is not ported to icepy4d_tpu_torch yet")
         self.matcher = LightGlue(
             n_layers=int(opt.get("n_layers", 9)),
             filter_threshold=float(opt.get("filter_threshold", 0.1)),
@@ -529,3 +601,198 @@ class LightGlueMatcher(ImageMatcherBase):
 
     def _run_matcher(self, data: dict) -> dict:
         return self.matcher.match(data)
+
+
+class NearestNeighborMatcher(ImageMatcherBase):
+    """SuperPoint + mutual nearest-neighbour cosine matching.
+
+    opt keys: max_keypoints, ratio_threshold (Lowe ratio on the
+    similarities, default off) and distance_threshold (least cosine
+    similarity, default 0.7).
+    """
+
+    def _build_models(self, opt: dict) -> None:
+        self._sim_th = float(opt.get("distance_threshold", 0.7))
+        self._ratio_th = opt.get("ratio_threshold", None)
+
+    @staticmethod
+    def _similarity(d0: torch.Tensor, d1: torch.Tensor, mask0, mask1):
+        """(B, M, N) cosine similarities in full f32, masked pairs at
+        _NEG."""
+        with full_f32_matmul():
+            sim = torch.bmm(d0.float(), d1.float().transpose(1, 2))
+        return sim.masked_fill_(~(mask0[:, :, None] & mask1[:, None, :]),
+                                _NEG)
+
+    @staticmethod
+    def _mutual(sim: torch.Tensor, m0: torch.Tensor) -> torch.Tensor:
+        """Whether row i's best column has row i as its best row."""
+        m1 = sim.argmax(dim=1)                          # (B, N)
+        rows = torch.arange(sim.shape[1], device=sim.device)[None]
+        return rows == torch.gather(m1, 1, m0)
+
+    def _nn(self, d0, d1, mask0, mask1):
+        sim = self._similarity(d0, d1, mask0, mask1)
+        best, second, m0 = top2_last(sim)
+        ok = self._mutual(sim, m0) & (best > self._sim_th) & mask0
+        if self._ratio_th is not None:
+            ok &= second < float(self._ratio_th) * best
+        return (torch.where(ok, m0, -1).to(torch.int32),
+                torch.where(ok, best, 0.0))
+
+    def _run_matcher(self, data: dict) -> dict:
+        matches0, scores0 = self._nn(data["desc0"], data["desc1"],
+                                     data["mask0"], data["mask1"])
+        return {"matches0": matches0, "mscores0": scores0}
+
+
+class SIFTMatcher(NearestNeighborMatcher):
+    """SIFT + Lowe-ratio nearest-neighbour matching, with epipolar-guided
+    rematching.
+
+    opt keys: max_keypoints (16384), ratio_threshold (0.95, Lowe's
+    distance ratio), mutual (False), contrast_threshold (0.015),
+    edge_threshold (12), upsample (True), dual_orientation (True),
+    guided_rounds (2), guided_band_px (3.0), guided_ratio (0.9),
+    guided_min_sim (0.7).
+
+    `match(..., F_prior=F)` guides the rematch with a surveyed
+    fundamental matrix (the pipeline's GCP prior): the stage-1
+    verification is skipped, and one guided round runs. Without a prior
+    up to `guided_rounds` rounds run, each guided by the last verified
+    F, until the match and inlier counts stop moving.
+    """
+
+    def _build_models(self, opt: dict) -> None:
+        self._opt.setdefault("extractor", "sift")
+        if int(opt.get("max_keypoints", -1)) <= 0:
+            self._max_keypoints = 16384
+        # a permissive ratio gives many putatives by design; the
+        # verification prunes them, so they are not capped at 4096
+        self._opt.setdefault("max_matches_per_pair", self._max_keypoints)
+        self._ratio_th = float(opt.get("ratio_threshold", 0.95))
+        self._mutual_check = bool(opt.get("mutual", False))
+        self._guided_rounds = int(opt.get("guided_rounds", 2))
+        self._guided_band = float(opt.get("guided_band_px", 3.0))
+        self._guided_ratio = float(opt.get("guided_ratio", 0.9))
+        self._guided_min_sim = float(opt.get("guided_min_sim", 0.7))
+
+    def _nn(self, d0, d1, mask0, mask1):
+        sim = self._similarity(d0, d1, mask0, mask1)
+        s1, s2, m0 = top2_last(sim)
+        # Lowe ratio on distances of unit descriptors, d^2 = 2 - 2 s
+        r2 = self._ratio_th ** 2
+        ok = (1.0 - s1) < r2 * (1.0 - s2)
+        ok &= mask0 & (s1 > _NEG / 2)
+        if self._mutual_check:
+            ok &= self._mutual(sim, m0)
+        return (torch.where(ok, m0, -1).to(torch.int32),
+                torch.where(ok, s1, 0.0))
+
+    def _nn_epipolar(self, d0, d1, k0, k1, mask0, mask1, F, band: float):
+        """Lowe-ratio NN restricted to the epipolar band of F (k0, k1 in
+        F's pixel frame): candidates farther than `band` px from the
+        epipolar line, in either image, are masked before the ratio
+        test; a lone in-band candidate passes it; then mutual, and the
+        similarity floor."""
+        F = torch.as_tensor(F, dtype=torch.float32, device=k0.device)
+        h0 = torch.cat([k0, torch.ones_like(k0[..., :1])], -1)
+        h1 = torch.cat([k1, torch.ones_like(k1[..., :1])], -1)
+        with full_f32_matmul():
+            l1 = h0 @ F.T                               # lines in image 1
+            l0 = h1 @ F                                 # lines in image 0
+            num = torch.bmm(l1, h1.transpose(1, 2)).abs_()   # (B, M, N)
+        n1 = torch.linalg.vector_norm(l1[..., :2], dim=-1).clamp_min(1e-9)
+        n0 = torch.linalg.vector_norm(l0[..., :2], dim=-1).clamp_min(1e-9)
+        inband = (num / n1[:, :, None]) < band
+        inband &= (num.div_(n0[:, None, :])) < band
+        del num
+        sim = self._similarity(d0, d1, mask0, mask1)
+        sim.masked_fill_(~inband, _NEG)
+        del inband
+        s1, s2, m0 = top2_last(sim)
+        r2 = self._guided_ratio ** 2
+        ok = (1.0 - s1) < r2 * (1.0 - s2)
+        ok |= s2 <= _NEG / 2
+        ok &= self._mutual(sim, m0)
+        ok &= mask0 & (s1 > self._guided_min_sim)
+        return (torch.where(ok, m0, -1).to(torch.int32),
+                torch.where(ok, s1, 0.0))
+
+    def _guided_rematch(self, threshold: float, confidence: float,
+                        gv_method, scale: float, guide) -> None:
+        """NN again over the cached full-image features, inside the
+        epipolar band of `guide` (in original pixels), then a fresh
+        verification; overwrites the match results."""
+        feats0, feats1 = self._full_feats
+        F = np.asarray(guide, np.float32)
+        if scale != 1.0:
+            # the cached keypoints are at the quality scale
+            S = np.diag(np.asarray([1.0 / scale, 1.0 / scale, 1.0],
+                                   np.float32))
+            F = S.T @ F @ S
+        with torch.inference_mode():
+            m0, conf = self._nn_epipolar(
+                feats0["descriptors"], feats1["descriptors"],
+                feats0["keypoints"], feats1["keypoints"],
+                feats0["mask"], feats1["mask"], F,
+                float(np.float32(self._guided_band * scale)))
+            m0 = m0[0].cpu().numpy()
+            conf = conf[0].cpu().numpy()
+            sel = m0 > -1
+            j = m0[sel]
+            host = {n: a[0].cpu().numpy() for n, a in feats0.items()}
+            host1 = {n: a[0].cpu().numpy() for n, a in feats1.items()}
+        self._mkpts0 = (host["keypoints"][sel] / scale).astype(np.float32)
+        self._mkpts1 = (host1["keypoints"][j] / scale).astype(np.float32)
+        self._descriptors0 = host["descriptors"][sel].T.astype(np.float32)
+        self._descriptors1 = host1["descriptors"][j].T.astype(np.float32)
+        self._scores0 = host["scores"][sel].astype(np.float32)
+        self._scores1 = host1["scores"][j].astype(np.float32)
+        self._mconf = conf[sel].astype(np.float32)
+        logger.info("guided rematch: %d putative matches in the epipolar "
+                    "band", len(self._mconf))
+        F2, mask = geometric_verification(
+            self._mkpts0, self._mkpts1, method=gv_method,
+            threshold=threshold, confidence=confidence, scores=self._mconf,
+            device=self.device)
+        if F2 is not None:
+            self._F = F2
+        self._inlier_mask = mask
+        self._filter_matches_by_mask(mask)
+
+    def match(self, image0, image1, **config) -> bool:
+        F_prior = config.pop("F_prior", None)
+        gv_method = config.get("geometric_verification",
+                               GeometricVerification.PYDEGENSAC)
+        full = config.get("tile_selection",
+                          TileSelection.NONE) is TileSelection.NONE
+        guided = (self._guided_rounds > 0 and full
+                  and gv_method is not GeometricVerification.NONE)
+        self._full_feats = None
+        if F_prior is not None and guided:
+            # the surveyed prior is the F the stage-1 verification would
+            # only estimate: skip it
+            config = dict(config,
+                          geometric_verification=GeometricVerification.NONE)
+        out = super().match(image0, image1, **config)
+        guide = F_prior if F_prior is not None else self._F
+        if guided and guide is not None and self._full_feats is not None:
+            scale = QUALITY_SCALE[config.get("quality", Quality.HIGH)]
+            prev = None
+            for _ in range(self._guided_rounds):
+                self._guided_rematch(float(config.get("threshold", 1.0)),
+                                     float(config.get("confidence", 0.9999)),
+                                     gv_method, scale, guide)
+                cur = (len(self._mkpts0),
+                       int(self._inlier_mask.sum())
+                       if self._inlier_mask is not None else 0)
+                # a pinned prior gives the same band every round
+                if cur == prev or F_prior is not None:
+                    break
+                prev = cur
+                if self._F is not None:
+                    guide = self._F
+            self.timer.update("guided_rematch")
+            self.timer.print("Matching+guided")
+        return out

@@ -189,6 +189,22 @@ def decompose_essential(E: torch.Tensor):
     return torch.stack([R1, R1, R2, R2]), torch.stack([t, -t, t, -t])
 
 
+# cuSOLVER's batched eigh refuses batches of tens of thousands of 4x4
+# matrices (CUSOLVER_STATUS_INVALID_VALUE: chip_smoke.py's SIFT season,
+# 4 x ~15000 in the cheirality test, hit it on an H100): point-batched
+# systems go through in chunks of this many
+EIGH_CHUNK = 16384
+
+
+def smallest_eigenvector(M: torch.Tensor, chunk: int = EIGH_CHUNK):
+    """Eigenvector of the smallest eigenvalue of each symmetric matrix in
+    the batch M (..., n, n), in chunks of `chunk` matrices (each
+    matrix's eigenvectors do not depend on the chunking)."""
+    flat = M.reshape((-1,) + M.shape[-2:])
+    vecs = [torch.linalg.eigh(c)[1][..., :, 0] for c in flat.split(chunk)]
+    return torch.cat(vecs).reshape(M.shape[:-1])
+
+
 def _cheirality_depths(R: torch.Tensor, t: torch.Tensor, x0n: torch.Tensor,
                        x1n: torch.Tensor):
     """Depths (z0, z1) of the homogeneous DLT triangulation of each
@@ -202,7 +218,7 @@ def _cheirality_depths(R: torch.Tensor, t: torch.Tensor, x0n: torch.Tensor,
                      x0n[..., 1, None] * P0[..., 2, :] - P0[..., 1, :],
                      x1n[..., 0, None] * P1[..., 2, :] - P1[..., 0, :],
                      x1n[..., 1, None] * P1[..., 2, :] - P1[..., 1, :]], -2)
-    X = torch.linalg.eigh(A.mT @ A)[1][..., :, 0]         # (..., N, 4)
+    X = smallest_eigenvector(A.mT @ A)                   # (..., N, 4)
     X = X / _safe(X[..., 3:])
     z1 = (X[..., :3] * R[..., None, 2, :]).sum(-1) + t[..., None, 2]
     return X[..., 2], z1

@@ -3,15 +3,17 @@
 Counterpart of `icepy4d_tpu/ops/triangulation.py`. P are 3x4 projection
 matrices K [R | t]; image points are (N, 2) tensors. Each point's small
 system is one entry of a batch: the 4x4 homogeneous systems go through
-one batched `torch.linalg.eigh`, the 3x3 normal equations of the
-iterative solver through one batched `torch.linalg.solve` (LU with
-partial pivoting, as the JAX package's `jnp.linalg.solve`) per
-iteration.
+batched `torch.linalg.eigh` (in chunks, `epipolar.EIGH_CHUNK`), the 3x3
+normal equations of the iterative solver through one batched
+`torch.linalg.solve` (LU with partial pivoting, as the JAX package's
+`jnp.linalg.solve`) per iteration.
 """
 
 from __future__ import annotations
 
 import torch
+
+from icepy4d_tpu_torch.ops.epipolar import smallest_eigenvector
 
 
 def _dlt_system_two_view(u0: torch.Tensor, u1: torch.Tensor,
@@ -31,7 +33,7 @@ def linear_eigen_triangulation(u0, u1, P0, P1) -> torch.Tensor:
     """Homogeneous DLT: smallest eigenvector of A^T A per point.
     Returns (N, 3)."""
     A = _dlt_system_two_view(u0, u1, P0, P1)
-    X = torch.linalg.eigh(A.mT @ A)[1][..., :, 0]
+    X = smallest_eigenvector(A.mT @ A)
     return X[:, :3] / _safe(X[:, 3:])
 
 

@@ -1,25 +1,29 @@
 """Multi-epoch stereo pipeline.
 
 Counterpart of the stereo path of `icepy4d_tpu/pipeline.py`. Per epoch:
-match (SuperPoint + LightGlue with geometric verification) -> relative
-orientation -> triangulation -> reprojection and cheirality filter ->
-absolute orientation on targets -> bundle adjustment with the adaptive
-trim ladder -> recovery ladder for gated epochs -> sparse points, CSV
-sinks and checkpoint. `run()` decodes and uploads the next epoch's
-frames in a worker thread while the current epoch computes.
+match (SuperPoint + LightGlue, SuperPoint + mutual NN, or SIFT + Lowe
+NN with the epipolar-guided rematch, each with geometric verification)
+-> temporal tracking of the previous epoch's features (proc.do_tracking)
+-> relative orientation -> triangulation -> reprojection and cheirality
+filter -> absolute orientation on targets -> bundle adjustment with the
+adaptive trim ladder -> recovery ladder for gated epochs -> dense
+reconstruction (proc.do_dense) -> sparse points, CSV sinks and
+checkpoint. `run()` decodes and uploads the next epoch's frames in a
+worker thread while the current epoch computes.
 
 The config is the JAX `Pipeline`'s: a dict (or a YAML path) with the
-sections paths, proc, matching, georef, ba, quality_gates, recovery and
-other. Paths this slice of the port does not run raise
+sections paths, proc, matching, georef, ba, quality_gates, recovery,
+dense and other. Paths the port does not run yet raise
 NotImplementedError naming what they wait for: more than two cameras,
-dense reconstruction, temporal tracking, space resection, homography
-warping, matchers other than LightGlue, `run_batched`,
+space resection, homography warping, the superglue, loftr and semidense
+matchers, LightGlue's adaptive forward, other.do_viz, `run_batched`,
 `run_distributed`, `watch` and `warmup`.
 
 Each processed epoch leaves its stage times in `self.stage_times`. The
-matcher, relative orientation, triangulation and BA calls run inside
-`torch.profiler` ranges named "matcher", "ransac", "triangulation" and
-"ba", which a profiler reads as the epoch's device split.
+matcher, tracking, relative orientation, triangulation, BA and dense
+calls run inside `torch.profiler` ranges named "matcher", "track",
+"ransac", "triangulation", "ba" and "dense", which a profiler reads as
+the epoch's device split.
 """
 
 from __future__ import annotations
@@ -35,29 +39,34 @@ from torch.profiler import record_function
 
 from icepy4d_tpu_torch.core import (Calibration, Camera, Epoch, EpochDataMap,
                                     Epoches, Features, Points, Targets)
+from icepy4d_tpu_torch.core.point_cloud import PointCloud
 from icepy4d_tpu_torch.device import resolve_device
 from icepy4d_tpu_torch.io.export2textfile import (
     write_cameras_to_file, write_reprojection_error_to_file)
 from icepy4d_tpu_torch.matching import (GeometricVerification,
-                                        LightGlueMatcher, Quality,
-                                        TileSelection)
+                                        LightGlueMatcher,
+                                        NearestNeighborMatcher, Quality,
+                                        SIFTMatcher, TileSelection,
+                                        track_matches)
 from icepy4d_tpu_torch.matching.matchers import _host_gray
 from icepy4d_tpu_torch.sfm import (AbsoluteOrientation, BAConfig,
-                                   BundleAdjustment, RelativeOrientation,
-                                   Triangulate, fundamental_from_cameras,
+                                   BundleAdjustment, PlaneSweepStereo,
+                                   RelativeOrientation, Triangulate,
+                                   fundamental_from_cameras,
                                    pose_from_known_center)
 from icepy4d_tpu_torch.sfm.geometry import project_points
 from icepy4d_tpu_torch.utils.config import DotDict, parse_cfg
 
 logger = logging.getLogger("icepy4d_tpu_torch")
 
-# the JAX package's matchers and what each waits for in the port
-_UNPORTED_MATCHERS = ("superglue", "loftr", "semidense", "nn", "sift")
+MATCHERS = {
+    "lightglue": LightGlueMatcher,
+    "nn": NearestNeighborMatcher,
+    "sift": SIFTMatcher,
+}
+# the JAX package's other matchers, which the port does not run yet
+_UNPORTED_MATCHERS = ("superglue", "loftr", "semidense")
 _UNPORTED_FLAGS = {
-    "do_dense": "dense reconstruction in the pipeline (core/point_cloud.py "
-                "and the depth range from the sparse cloud)",
-    "do_tracking": "temporal tracking (FeatureSet/PointSet and "
-                   "track_matches)",
     "do_space_resection": "SpaceResection (ransac_pnp and pnp_dlt)",
     "do_homography_warping": "the homography warping of the season",
 }
@@ -89,11 +98,14 @@ class Pipeline:
         for key, what in _UNPORTED_FLAGS.items():
             if bool(proc.get(key, False)):
                 raise _not_ported(f"proc.{key}: {what}")
+        if bool(cfg.get("other", {}).get("do_viz", False)):
+            raise _not_ported("other.do_viz (the match plot and the "
+                              "matched keypoints as text)")
         m_cfg = cfg.get("matching", DotDict())
         name = str(m_cfg.get("matcher", "lightglue")).lower()
         if name in _UNPORTED_MATCHERS:
             raise _not_ported(f"the {name} matcher")
-        if name != "lightglue":
+        if name not in MATCHERS:
             raise KeyError(f"unknown matcher {name!r}")
         self.results_dir.mkdir(parents=True, exist_ok=True)
         self._epoch_map_kwargs = dict(
@@ -110,7 +122,7 @@ class Pipeline:
         opt = dict(m_cfg.get("options", {}) or {})
         if "max_keypoints" in m_cfg:
             opt.setdefault("max_keypoints", int(m_cfg.max_keypoints))
-        self.matcher = LightGlueMatcher(opt, device=self.device)
+        self.matcher = MATCHERS[name](opt, device=self.device)
         self._next_track_id = 0
         self._prefetched: dict[int, dict] = {}
         self._active_prefetch: dict | None = None
@@ -238,25 +250,50 @@ class Pipeline:
         return float(self.cfg.get("other", {}).get("pydegensac_threshold",
                                                    1.0))
 
-    def _match_epoch(self, epoch: Epoch, prev: Epoch | None) -> bool:
+    def _match_epoch(self, epoch: Epoch, prev: Epoch | None) -> float:
+        """Pair match, then (proc.do_tracking) the previous epoch's
+        features tracked into the same frames; returns the seconds the
+        tracking took."""
         cfg = self.cfg.get("matching", DotDict())
         pf = self._active_prefetch or {}
+        # one object per frame for the match and the tracking: the
+        # matcher's feature cache is keyed by the objects' identities
         im0 = pf.get(self.cams[0], epoch.images[self.cams[0]].value)
         im1 = pf.get(self.cams[1], epoch.images[self.cams[1]].value)
         prior = self._gcp_prior(epoch)
         self._epoch_prior = prior
+        tile = TileSelection[str(cfg.get("tile_selection", "none")).upper()]
         with record_function("matcher"):
             self.matcher.match(
                 im0, im1,
                 quality=Quality[str(cfg.get("quality", "high")).upper()],
-                tile_selection=TileSelection[str(cfg.get(
-                    "tile_selection", "none")).upper()],
+                tile_selection=tile,
                 grid=list(cfg.get("grid", [1, 1])),
                 overlap=int(cfg.get("overlap", 0)),
                 threshold=self._threshold(),
                 confidence=float(cfg.get("confidence", 0.9999)),
                 geometric_verification=GeometricVerification[str(cfg.get(
-                    "geometric_verification", "pydegensac")).upper()])
+                    "geometric_verification", "pydegensac")).upper()],
+                F_prior=(prior[1] if prior is not None else None))
+
+        # tracking reuses the pair match's grid and overlap, so its
+        # extraction is the pair match's (the cache hits)
+        tracked, track_s = None, 0.0
+        if prev is not None and bool(self.cfg.get("proc", DotDict()).get(
+                "do_tracking", False)) \
+                and all(len(prev.features[c]) for c in self.cams):
+            tiled = tile is not TileSelection.NONE
+            t0 = self._now()
+            with record_function("track"):
+                tracked = track_matches(
+                    self.matcher, {c: prev.features[c] for c in self.cams},
+                    {self.cams[0]: im0, self.cams[1]: im1},
+                    grid=tuple(cfg.get("tracking_grid", tuple(
+                        cfg.get("grid", (1, 1))) if tiled else (1, 1))),
+                    overlap=int(cfg.get("tracking_overlap", int(
+                        cfg.get("overlap", 0)) if tiled else 0)),
+                    quality=str(cfg.get("quality", "high")))
+            track_s = self._now() - t0
         mk0, mk1 = self.matcher.mkpts0, self.matcher.mkpts1
         inl = self.matcher.inlier_mask
         stats = epoch.quality["stats"]
@@ -277,7 +314,15 @@ class Pipeline:
             feats.append_features_from_numpy(mk, descr=d, scores=s,
                                              track_ids=new_ids)
             epoch.features[c] = feats
-        return True
+        if tracked is not None:
+            # tracked features follow the new matches, with their old ids
+            for c in self.cams:
+                t = tracked[c]
+                epoch.features[c].append_features_from_numpy(
+                    t.kpts_to_numpy(), descr=t.descr_to_numpy(),
+                    scores=t.scores_to_numpy(),
+                    track_ids=t.track_ids_to_numpy())
+        return track_s
 
     def _reprojection_keep(self, epoch: Epoch, pts3d, kpts) -> np.ndarray:
         """Triangulated points that reproject within twice the RANSAC
@@ -515,34 +560,66 @@ class Pipeline:
             rmse = np.inf
         return (rank, rmse, -q["stats"].get("n_orientation_inliers", 0))
 
+    def _relaxed_matcher_options(self, epoch: Epoch):
+        """(options, verification threshold or None) of the recovery
+        rematch. NN and SIFT: a widened epipolar band and permissive
+        ratio and similarity thresholds, each override only ever more
+        permissive than the live matcher's; LightGlue: a lowered filter
+        threshold and a widened verification threshold."""
+        rec = self.cfg.get("recovery", DotDict())
+        m_cfg = self.cfg.get("matching", DotDict())
+        opt = dict(m_cfg.get("options", {}) or {})
+        if "max_keypoints" in m_cfg:
+            opt.setdefault("max_keypoints", int(m_cfg.max_keypoints))
+        if isinstance(self.matcher, NearestNeighborMatcher):
+            base_band = float(opt.get("guided_band_px", 3.0))
+            opt.update({
+                "guided_band_px": float(rec.get("guided_band_px",
+                                                3.0 * base_band)),
+                "guided_ratio": float(rec.get("guided_ratio", 0.95)),
+                "guided_min_sim": float(rec.get("guided_min_sim", 0.55)),
+            })
+            # the plain NN matcher runs without a ratio test: forcing one
+            # would make the retry stricter than the failure
+            if self.matcher._ratio_th is not None:
+                opt["ratio_threshold"] = max(
+                    float(rec.get("ratio_threshold", 0.97)),
+                    float(self.matcher._ratio_th))
+            if hasattr(self.matcher, "_sim_th"):
+                opt["distance_threshold"] = min(
+                    float(rec.get("distance_threshold", 0.5)),
+                    float(self.matcher._sim_th))
+            logger.info("epoch %s: recovery rematch with relaxed guidance "
+                        "(band %.1f px)", epoch.date_str,
+                        opt["guided_band_px"])
+            return opt, None
+        opt["filter_threshold"] = min(
+            float(rec.get("filter_threshold", 0.0)),
+            float(opt.get("filter_threshold", 0.1)))
+        relaxed_gv = float(rec.get("gv_threshold", 2.0 * self._threshold()))
+        logger.info("epoch %s: recovery rematch with relaxed learned-"
+                    "matcher thresholds (GV %.1f px)", epoch.date_str,
+                    relaxed_gv)
+        return opt, relaxed_gv
+
     def _recover_epoch(self, ep: int, epoch: Epoch, pts3d,
                        prev: Epoch | None):
-        """Step 1: re-run match -> orient -> BA with a lowered LightGlue
-        filter threshold and a widened verification threshold, adopted
-        only if it scores strictly better. Step 2: with surveyed
-        geometry, pin the cameras to the prior poses and re-triangulate
-        and re-adjust from there."""
+        """Step 1: re-run match -> orient -> BA with relaxed matcher
+        settings (`_relaxed_matcher_options`), adopted only if it scores
+        strictly better. Step 2: with surveyed geometry, pin the cameras
+        to the prior poses and re-triangulate and re-adjust from
+        there."""
         rec = self.cfg.get("recovery", DotDict())
         proc = self.cfg.get("proc", DotDict())
-        m_cfg = self.cfg.get("matching", DotDict())
         if bool(rec.get("relaxed_rematch", True)):
-            opt = dict(m_cfg.get("options", {}) or {})
-            if "max_keypoints" in m_cfg:
-                opt.setdefault("max_keypoints", int(m_cfg.max_keypoints))
-            opt["filter_threshold"] = min(
-                float(rec.get("filter_threshold", 0.0)),
-                float(opt.get("filter_threshold", 0.1)))
-            relaxed_gv = float(rec.get("gv_threshold",
-                                       2.0 * self._threshold()))
-            logger.info("epoch %s: recovery rematch with relaxed learned-"
-                        "matcher thresholds (GV %.1f px)", epoch.date_str,
-                        relaxed_gv)
+            opt, relaxed_gv = self._relaxed_matcher_options(epoch)
             saved_matcher = self.matcher
             other = self.cfg.setdefault("other", DotDict())
             saved_th = other.get("pydegensac_threshold", 1.0)
             try:
                 self.matcher = type(saved_matcher)(opt, device=self.device)
-                other["pydegensac_threshold"] = relaxed_gv
+                if relaxed_gv is not None:
+                    other["pydegensac_threshold"] = relaxed_gv
                 retry = self._initialize_epoch(ep)
                 self._match_epoch(retry, prev)
                 pts_retry = self._orient_epoch(retry)
@@ -619,6 +696,41 @@ class Pipeline:
                 ba_blk["camera_location_accuracy"] = saved_sigma
         return pts3d
 
+    # -- dense -------------------------------------------------------------------
+
+    def _dense_epoch(self, epoch: Epoch, pts3d: np.ndarray) -> None:
+        """Dense cloud of the epoch's pair: PlaneSweepStereo at the
+        `dense` block's settings over a depth range from the sparse
+        cloud's 2nd and 98th distance percentiles, optional SOR, and
+        `dense_<date>.ply` in the epoch's directory."""
+        dn = self.cfg.get("dense", DotDict())
+        cam0 = epoch.cameras[self.cams[0]]
+        d = np.linalg.norm(pts3d - np.asarray(cam0.C).reshape(1, 3), axis=1)
+        d_lo = float(np.percentile(d, 2) * float(dn.get("near_margin", 0.7)))
+        d_hi = float(np.percentile(d, 98) * float(dn.get("far_margin", 1.5)))
+        pss = PlaneSweepStereo(
+            [epoch.cameras[c] for c in self.cams],
+            [epoch.images[c].value for c in self.cams],
+            depth_min=d_lo, depth_max=d_hi,
+            n_planes=int(dn.get("n_planes", 128)),
+            window=int(dn.get("window", 7)),
+            downscale=int(dn.get("downscale", 1)),
+            cost_threshold=float(dn.get("cost_threshold", 0.4)),
+            uniqueness_threshold=float(dn.get("uniqueness_threshold", 0.99)),
+            device=self.device)
+        with record_function("dense"):
+            pss.run()
+            pts, colors = pss.to_point_cloud()
+        pc = PointCloud(points3d=pts, points_col=colors)
+        if bool(self.cfg.get("other", {}).get("do_SOR_filter", False)) \
+                and len(pc) > 100:
+            pc.sor_filter(device=self.device)
+        epoch.point_cloud = pc
+        epoch.epoch_dir.mkdir(parents=True, exist_ok=True)
+        pc.write_ply(epoch.epoch_dir / f"dense_{epoch.date_str}.ply")
+        logger.info("epoch %s dense cloud: %d points", epoch.date_str,
+                    len(pc))
+
     # -- season loop -----------------------------------------------------------
 
     def _bump_track_ids(self, epoch: Epoch) -> None:
@@ -671,8 +783,11 @@ class Pipeline:
         for k in [k for k in list(self._prefetched) if k <= ep]:
             self._prefetched.pop(k, None)
         t = self._add_time("decode_s", t)
-        self._match_epoch(epoch, prev)
+        track_s = self._match_epoch(epoch, prev)
         t = self._add_time("match_s", t)
+        if bool(proc.get("do_tracking", False)):
+            self._stage["match_s"] -= track_s
+            self._stage["track_s"] = track_s
         pts3d = self._orient_epoch(epoch)
         t = self._add_time("orient_s", t)
         if pts3d is not None and bool(proc.get("do_ba", True)):
@@ -683,6 +798,10 @@ class Pipeline:
             epoch, pts3d = self._recover_epoch(ep, epoch, pts3d, prev)
             t = self._add_time("recovery_s", t)
         self._active_prefetch = None
+        if pts3d is not None and len(pts3d) > 10 \
+                and bool(proc.get("do_dense", False)):
+            self._dense_epoch(epoch, pts3d)
+            t = self._add_time("dense_s", t)
         self._finalize_epoch(epoch, pts3d)
         self._add_time("finalize_s", t)
         self.stage_times[ep] = dict(self._stage)

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Where a warm full-size run of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/profile_torch_match.py [--path match|dense|season]
-        [--top 25]
+    python3 scripts/profile_torch_match.py
+        [--path match|dense|season|sift] [--top 25]
 
 `--path match` (the default) runs `chip_smoke.py`'s matcher path
 (synthetic 6012x4008 pair, 2x2 EXHAUSTIVE tiles, 4096 keypoints per
 tile, bundled weights, PYDEGENSAC); `--path dense` its dense path
 (PlaneSweepStereo at the pipeline's settings on the synthetic 6012x4008
-plane pair). Each runs once cold, then once under `torch.profiler` with
-CPU and CUDA activity.
+plane pair); `--path sift` SIFT at the real season's settings
+(`chip_smoke.SIFT_MATCHING`: 16384 keypoints, one orientation) on one
+frame of the 6012x4008 pair. Each runs once cold, then once under
+`torch.profiler` with CPU and CUDA activity.
 
 `--path season` runs `Pipeline.run()` on `chip_smoke.py`'s season
-(`chip_smoke.season_config`, three epochs): epoch 0 is the cold run,
+(`chip_smoke.season_config`, three epochs, tracking and dense on as in
+its phase 7): epoch 0 is the cold run,
 epoch 1 runs under the full profiler, and the device time is also split
-by the pipeline's profiler ranges (matcher, ransac, triangulation, ba)
+by the pipeline's profiler ranges (matcher, track, ransac,
+triangulation, ba, dense)
 and the host's share of the wall time; epoch 2 runs under a profiler
 that traces CUDA activity only, which costs far less a launch, for the
 device's busy and idle share of an epoch closer to an untraced one. The
@@ -43,7 +47,7 @@ from torch.profiler import ProfilerActivity, profile
 
 REPO = Path(__file__).resolve().parents[1]
 # the Pipeline's profiler ranges (icepy4d_tpu_torch/pipeline.py)
-STAGES = ("matcher", "ransac", "triangulation", "ba")
+STAGES = ("matcher", "track", "ransac", "triangulation", "ba", "dense")
 OWN = ("nms_border_kernel", "masked_attention_kernel", "sweep_kernel")
 
 
@@ -73,6 +77,18 @@ def dense_run(chip_smoke):
                            cost_threshold=0.4, uniqueness_threshold=0.99,
                            lr_check=True, lr_tau=2.0)
     return pss.run, (lambda: pss.timer.times)
+
+
+def sift_run(chip_smoke):
+    from icepy4d_tpu_torch.models import SIFT
+
+    opt = chip_smoke.SIFT_MATCHING["options"]
+    sift = SIFT(max_keypoints=chip_smoke.SIFT_MATCHING["max_keypoints"],
+                contrast_threshold=0.015, edge_threshold=12.0,
+                dual_orientation=opt["dual_orientation"])
+    img = torch.from_numpy(chip_smoke.shifted_pair()[0]).cuda()
+    img = img[None].float() / 255.0
+    return (lambda: sift.extract(img)), dict
 
 
 def device_kernels(prof) -> list:
@@ -135,6 +151,7 @@ def profile_season(chip_smoke, args) -> dict:
     tmp = tempfile.TemporaryDirectory()
     _, cfg = chip_smoke.season_config(torch.device("cuda"), tmp.name,
                                       n_epochs=3)
+    cfg["proc"].update(do_tracking=True, do_dense=True)   # phase 7's path
     pipe = Pipeline(cfg)
     full = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                    record_shapes=True)
@@ -176,7 +193,7 @@ def profile_season(chip_smoke, args) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("match", "dense", "season"),
+    ap.add_argument("--path", choices=("match", "dense", "season", "sift"),
                     default="match",
                     help="which of chip_smoke.py's paths to profile")
     ap.add_argument("--top", type=int, default=25,
@@ -192,8 +209,8 @@ def main() -> None:
     if args.path == "season":
         out = profile_season(chip_smoke, args)
     else:
-        run, stages = (matcher_run if args.path == "match"
-                       else dense_run)(chip_smoke)
+        run, stages = {"match": matcher_run, "dense": dense_run,
+                       "sift": sift_run}[args.path](chip_smoke)
         run()                                  # cold: builds, cuDNN plans
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,

@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""CPU rehearsal of `chip_smoke.py`'s season phases (7: LightGlue with
+tracking and dense; 8: the SIFT season) at a reduced frame size.
+
+    python3 scripts/rehearse_seasons_cpu.py [--phase 7|8|both]
+
+Runs every stage of both phases on the CPU on 1000x1504 frames (f = 1500
+px, 5 m baseline, 1024 keypoints a tile), in a few minutes. Launches are
+counted on the kernels' plain versions (the CPU runs no kernel). The
+gates, set from full-size card runs, are checked and a gate that fails
+is printed, not raised: at this size the tie-point and rotation gates
+are expected to fail.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(REPO / "tests"))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", choices=("7", "8", "both"), default="both")
+    args = ap.parse_args()
+
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.empty_cache = lambda *a, **k: None
+    import chip_smoke as cs
+    import icepy4d_tpu_torch.pipeline as pipeline
+    from icepy4d_tpu_torch.models import superpoint
+    from icepy4d_tpu_torch.ops import attention, dense
+
+    cs.H_IMG, cs.W_IMG = 1000, 1504
+    cs.SEASON_F = 1500.0
+    cs.SEASON_KEYPOINTS = 1024
+    cs.SEASON_BASELINE = 5.0    # at 4 m the faces' disparities collapse
+    pipeline.resolve_device = lambda device=None: torch.device("cpu")
+    counts = {"nms": 0, "attention": 0, "sweep": 0}
+
+    def counted(mod, name, key):
+        fn = getattr(mod, name)
+
+        def call(*a, **k):
+            counts[key] += 1
+            return fn(*a, **k)
+
+        setattr(mod, name, call)
+
+    counted(superpoint, "fused_nms_border", "nms")
+    counted(attention, "attention_plain", "attention")
+    counted(dense, "disparity_sweep_plain", "sweep")
+
+    def reset():
+        for k in counts:
+            counts[k] = 0
+
+    def read():
+        return dict(counts)
+
+    dev = torch.device("cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, cfg = cs.season_config(dev, tmp, n_epochs=3)
+        # one extraction chunk an image at this size; one pair chunk
+        first = {"nms": 2, "attention": 36, "sweep": 2}
+        tracked = dict(first, attention=72)
+        phases = []
+        if args.phase in ("7", "both"):
+            phases.append(("7", lambda: cs.season_path(
+                dev, reset, read, scene, cfg, [first, tracked, tracked])))
+        if args.phase in ("8", "both"):
+            phases.append(("8", lambda: cs.sift_season_path(
+                dev, reset, read, scene, cfg)))
+        for name, run in phases:
+            t0 = time.perf_counter()
+            try:
+                run()
+                cs.log(f"phase {name}: every gate held")
+            except AssertionError as e:
+                cs.log(f"phase {name}: gate failed at this size: {e}")
+            cs.log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
+if __name__ == "__main__":
+    main()

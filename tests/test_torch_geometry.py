@@ -256,3 +256,13 @@ def test_pose_from_known_center():
     ref = j_pose_known(jcam, C, uv, X)
     _close(got.extrinsics, np.asarray(ref.extrinsics), F64)
     np.testing.assert_allclose(got.extrinsics[:3, :3], E[:3, :3], atol=1e-4)
+
+
+def test_smallest_eigenvector_in_chunks():
+    """Point-batched eigh runs in chunks (cuSOLVER's batched eigh refuses
+    batches of tens of thousands); the chunks give what one call gives."""
+    A = np.random.default_rng(5).normal(size=(2, 50, 4, 4)).astype(np.float32)
+    M = _t(np.swapaxes(A, -1, -2) @ A)
+    got = ep.smallest_eigenvector(M, chunk=7)
+    np.testing.assert_array_equal(got.numpy(),
+                                  torch.linalg.eigh(M)[1][..., :, 0].numpy())

@@ -28,6 +28,7 @@ def _imports(path: Path):
                             REPO / "scripts" / "profile_torch_match.py",
                             REPO / "scripts" / "degensac_seeds.py",
                             REPO / "scripts" / "time_torch_kernels.py",
+                            REPO / "scripts" / "rehearse_seasons_cpu.py",
                             # the season renderer chip_smoke.py imports
                             REPO / "tests" / "torch_port_inputs.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
@@ -60,14 +61,21 @@ def no_cuda():
 
 
 def test_default_device_raises_without_cuda(no_cuda):
+    from icepy4d_tpu_torch.core import PointCloud
     from icepy4d_tpu_torch.matching import (LightGlueMatcher,
+                                            NearestNeighborMatcher,
+                                            SIFTMatcher,
                                             geometric_verification)
-    from icepy4d_tpu_torch.models import LightGlue, SuperPoint
+    from icepy4d_tpu_torch.models import SIFT, LightGlue, SuperPoint
     from icepy4d_tpu_torch.sfm import PlaneSweepStereo
 
-    for make in (LightGlueMatcher, SuperPoint, LightGlue):
+    for make in (LightGlueMatcher, NearestNeighborMatcher, SIFTMatcher,
+                 SuperPoint, LightGlue, SIFT):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+    cloud = PointCloud(points3d=np.zeros((20, 3), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cloud.sor_filter()
     img = np.zeros((16, 16), np.uint8)
     with pytest.raises(RuntimeError, match="CUDA"):
         PlaneSweepStereo([None, None], [img, img], 1.0, 2.0)

@@ -147,20 +147,115 @@ def test_sabotaged_epoch_is_recovered_alike(season):
     _agree(eps, jeps)
 
 
-@pytest.mark.parametrize("key", ["do_dense", "do_tracking",
+def _unported(cfg, key):
+    """Set one path the port does not run yet."""
+    if key == "other.do_viz":
+        cfg["other"] = dict(cfg["other"], do_viz=True)
+    elif key == "matching.options.adaptive":
+        cfg["matching"] = dict(cfg["matching"], options=dict(
+            cfg["matching"]["options"], adaptive=True))
+    else:
+        cfg["proc"][key] = True
+    return cfg
+
+
+@pytest.mark.parametrize("key", ["other.do_viz",
+                                 "matching.options.adaptive",
                                  "do_space_resection",
                                  "do_homography_warping"])
 def test_unported_paths_raise(season, key):
     with pytest.raises(NotImplementedError, match="not ported"):
-        Pipeline(_cfg(season, "unported", **{key: True}), device="cpu")
+        Pipeline(_unported(_cfg(season, "unported"), key), device="cpu")
 
 
 def test_unported_entry_points_raise(season):
     cfg = _cfg(season, "unported")
-    cfg["matching"] = dict(cfg["matching"], matcher="sift")
-    with pytest.raises(NotImplementedError, match="sift"):
+    cfg["matching"] = dict(cfg["matching"], matcher="semidense")
+    with pytest.raises(NotImplementedError, match="semidense"):
         Pipeline(cfg, device="cpu")
     pipe = Pipeline(_cfg(season, "unported"), device="cpu")
     for name in ("run_batched", "run_distributed", "watch", "warmup"):
         with pytest.raises(NotImplementedError, match=name):
             getattr(pipe, name)()
+
+
+def _tracked_per_epoch(eps):
+    """Features of each epoch whose track ids the epoch before held."""
+    out = []
+    for prev, e in zip(eps, eps[1:]):
+        ids = e.features["cam1"].track_ids_to_numpy()
+        out.append(int(np.isin(ids, prev.features["cam1"]
+                               .track_ids_to_numpy()).sum()))
+    return out
+
+
+def test_tracking_season_agrees(season):
+    proc = {"do_tracking": True, "save_checkpoints": False}
+    eps = list(Pipeline(_cfg(season, "trk_port", **proc),
+                        device="cpu").run())
+    jeps = list(JPipeline(JDotDict.wrap(_cfg(season, "trk_jax",
+                                             **proc))).run())
+    assert [e.quality["status"] for e in eps] == \
+        [e.quality["status"] for e in jeps]
+    got, ref = _tracked_per_epoch(eps), _tracked_per_epoch(jeps)
+    assert all(r > 20 for r in ref), ref
+    for g, r in zip(got, ref):
+        assert abs(g - r) <= 0.03 * r, (got, ref)
+    _agree(eps, jeps)
+
+
+def test_sift_season_with_gcp_prior_agrees(season):
+    """The real season's path: SIFT, the GCP prior, tracking."""
+    def cfg(name):
+        c = _cfg(season, name, save_checkpoints=False, do_tracking=True)
+        c["matching"] = dict(c["matching"], matcher="sift",
+                             max_keypoints=2048,
+                             options={"dual_orientation": False})
+        return c
+
+    pipe = Pipeline(cfg("sift_port"), device="cpu")
+    eps = list(pipe.run())
+    assert pipe._gcp_prior(eps[0]) is not None
+    jeps = list(JPipeline(JDotDict.wrap(cfg("sift_jax"))).run())
+    _agree(eps, jeps)
+    assert all(e.quality["status"] == "ok" for e in eps)
+
+
+def test_dense_epoch_agrees(season):
+    proc = {"epoch_to_process": [0], "do_dense": True,
+            "save_checkpoints": False}
+    ep, = Pipeline(_cfg(season, "dense_port", **proc), device="cpu").run()
+    jep, = JPipeline(JDotDict.wrap(_cfg(season, "dense_jax", **proc))).run()
+    n, jn = len(ep.point_cloud), len(jep.point_cloud)
+    assert jn > 10000
+    assert abs(n - jn) <= 0.02 * jn
+    C, jC = (np.asarray(e.cameras["cam1"].C).reshape(1, 3) for e in (ep, jep))
+    depth = np.median(np.linalg.norm(ep.point_cloud.points - C, axis=1))
+    jdepth = np.median(np.linalg.norm(jep.point_cloud.points - jC, axis=1))
+    assert abs(depth - jdepth) <= 0.005 * jdepth
+    ply = season[0] / "dense_port" / "epochs"
+    assert len(list(ply.rglob("dense_*.ply"))) == 1
+
+
+@pytest.mark.parametrize("matcher,options,expect", [
+    # the plain NN matcher has no ratio test: the retry forces none
+    ("nn", {"distance_threshold": 0.7},
+     {"guided_band_px": 9.0, "guided_ratio": 0.95, "guided_min_sim": 0.55,
+      "distance_threshold": 0.5}),
+    ("sift", {"ratio_threshold": 0.98, "guided_band_px": 2.0},
+     {"guided_band_px": 6.0, "guided_ratio": 0.95, "guided_min_sim": 0.55,
+      "ratio_threshold": 0.98}),
+])
+def test_nn_family_recovery_is_permissive(season, matcher, options, expect):
+    """The NN family's recovery rematch widens the band and relaxes the
+    ratio and similarity floor, never past the live matcher's own
+    settings, as the JAX ladder does (pipeline.py:942-970)."""
+    cfg = _cfg(season, "relax")
+    cfg["matching"] = dict(cfg["matching"], matcher=matcher,
+                           options=dict(cfg["matching"]["options"], **options))
+    pipe = Pipeline(cfg, device="cpu")
+    opt, gv = pipe._relaxed_matcher_options(pipe._initialize_epoch(0))
+    assert gv is None
+    assert {k: opt.get(k) for k in expect} == expect
+    assert ("ratio_threshold" in opt) == ("ratio_threshold" in expect)
+    assert ("distance_threshold" in opt) == ("distance_threshold" in expect)

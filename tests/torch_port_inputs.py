@@ -310,6 +310,21 @@ class StereoSeason:
                               out)
         return out.numpy()
 
+    def face_index(self, P: np.ndarray) -> np.ndarray:
+        """Index of the face (0 rock wall, 1 tongue, 2 boulders) nearest
+        to each world point among those it lies on; -1 for none."""
+        import torch
+
+        Q = torch.as_tensor(np.asarray(P, np.float64) - SEASON_ORIGIN)
+        best = torch.full((len(Q),), float("inf"), dtype=torch.float64)
+        idx = torch.full((len(Q),), -1)
+        for k, Y in enumerate(self.layers):
+            d = (Q[:, 1] - Y).abs()
+            closer = self._mask(k, Q[:, 0], Q[:, 2]) & (d < best)
+            best = torch.where(closer, d, best)
+            idx = torch.where(closer, k, idx)
+        return idx.numpy()
+
     def extrinsics(self, i: int) -> np.ndarray:
         """World -> camera 4x4 of camera i in world coordinates."""
         E = np.eye(4)

@@ -25,7 +25,11 @@ anything in it fails:
    1e-5 and inbounds equal on every pixel, disparity and uniqueness
    within 5e-3 on every pixel that is not a near tie, i.e. whose best
    and runner-up plain costs are more than 1e-5 apart, and disparity on
-   >= 99.99% of all pixels);
+   >= 99.99% of all pixels); attention also at the adaptive LightGlue's
+   packed capacities, B = the tile-pair batch, (Nq, Nk) in
+   {64, ..., 2048}^2 with padding masks and head views, where a shape
+   over 2e-3 passes only if the kernel is as close to the plain f32
+   version as the plain bf16 one is (see check_attention);
 4. matcher path: LightGlueMatcher.match on a synthetic 6012x4008 pair
    with a known 8-px shift, 2x2 EXHAUSTIVE tiles, 4096 keypoints per
    tile, bundled weights, PYDEGENSAC; run cold, then warm with every
@@ -81,7 +85,45 @@ anything in it fails:
    nearest-neighbour matcher run none of the three);
 9. times: each kernel, its plain version, the library call that
    computes the same function (where there is one) and the card's lower
-   bound, printed as one JSON line.
+   bound, printed as one JSON line;
+10. adaptive matcher: phase 4's pair through LightGlueMatcher with
+   `adaptive` at the default confidences (early exit and pruning as
+   the bundled weights decide), then with every token-confidence head
+   forced to sigmoid(10), once at the default depth confidence (it
+   exits after the first segment) and once with the exit off and a
+   width confidence that prunes both sides of every tile pair to at
+   most half; each run >= 90% of the inliers within 1.5 px of the
+   shift, and attention launches = 4 x the layers each pair chunk ran;
+   the kernel against the plain bf16 attention on a pruned segment's
+   own q, k, v and mask (the phase-3 rule); the kernel, the plain
+   version, SDPA and the bound at two pruned shapes;
+11. n-camera season: a 3-camera, 3-epoch synthetic season at 6012x4008
+   (StereoSeason with n_cameras=3, rendered on the card) through
+   Pipeline(cfg).run() with phase 7's matcher settings, tracking, space
+   resection, the "metashape" BA block and homography warping on (the
+   n-camera path, as in the JAX package, runs neither the resection
+   nor the BA block's intrinsics); every epoch ok, within MULTICAM_GATES
+   (BA RMSE, tie points, each slave's rotation relative to the master,
+   distance to the faces), exact NMS and attention launches an epoch
+   (derived below), one warped image an epoch and the reference epoch's
+   warp near identity; epoch 0's BA problem solved again with
+   BundleAdjustment(compute_covariance=True) and its covariances held
+   against the same function run in float64 on the card (relative
+   Frobenius error <= 1e-2 on every point, symmetric, positive
+   definite); the cold and warm epoch times by stage;
+12. PnP, MAGSAC, space resection in the season, the match writer:
+   SpaceResection on 12 noise-free GCPs 40-60 m away, 3 of them gross
+   outliers (the 3 rejected by the PnP RANSAC, the pose within 0.01
+   degrees and 0.01 m of the truth); MAGSAC on phase 4's putatives
+   (>= 90% of the inliers within 1.5 px of the shift); phase 7's frames
+   through a 2-epoch stereo Pipeline with do_space_resection and
+   other.do_viz: resection_targets_<cam> for both cameras, each
+   resected centre within 1 mm of its surveyed centre (the known-centre
+   branch pins it), matches.png and both keypoint files an epoch.
+
+Phase 10 runs after phase 5 on its pair, phase 12 after phase 8 on
+phase 7's frames, and phase 11 after it, all before the timing of phase
+9; their results are in the same JSON line.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -126,6 +168,12 @@ SEASON_GATES = {"rmse_px": 0.15, "points": 4500, "rotation_deg": 0.01,
 # (100 putatives, 50 verified).
 SIFT_GATES = {"rmse_px": 0.25, "putative": 5000, "verified": 5000,
               "points": 12000, "rotation_deg": 0.075, "surface_m": 0.15}
+# Gates of every n-camera season epoch (phase 11), about 3x (20% for the
+# points) off what the first H100 run read: BA rmse 0.053-0.078 px,
+# 7621-7782 tie points, the worst slave's rotation relative to the
+# master 0.0009-0.0033 degrees off the truth, 2-10 mm to the faces.
+MULTICAM_GATES = {"rmse_px": 0.25, "points": 6000, "rotation_deg": 0.01,
+                  "surface_m": 0.03}
 SIFT_MATCHING = {"matcher": "sift", "quality": "high",
                  "tile_selection": "none", "max_keypoints": 16384,
                  "options": {"dual_orientation": False}}
@@ -326,10 +374,21 @@ def attention_mask(mode: str, b: int, nk: int, dev) -> torch.Tensor:
 
 
 def check_attention(attention, dev, b, h, nq, nk, mode="rand",
-                    head_views=False) -> float:
+                    head_views=False, yardstick=False) -> float:
     """Attention kernel vs plain bf16 on f32 inputs; the last batch row
     is fully masked. `head_views` passes q, k, v as (B, H, N, hd) views
-    of (B, N, H, hd) storage, as LightGlue's blocks do."""
+    of (B, N, H, hd) storage, as LightGlue's blocks do.
+
+    With `yardstick`, a shape whose kernel-vs-plain error exceeds 2e-3
+    still passes when the kernel is as close to the plain f32 version
+    as the plain bf16 one is (within 1e-4 of the output's largest
+    magnitude): the two bf16 versions sum q.k in other orders, so a
+    probability that lies on a bf16 rounding boundary rounds apart in
+    them, by 2^-8 of itself; in a row of a few valid keys that moves
+    the output by up to 3e-3 of its largest magnitude, in either
+    (tests/test_torch_attention.py::
+    test_kernel_as_far_from_f32_as_plain_bf16 holds this on the inputs
+    of the four adaptive shapes that need it)."""
     q, k, v, mask = attention_inputs(b, h, nq, nk, dev)
     if mode != "rand":
         mask = attention_mask(mode, b, nk, dev)
@@ -345,13 +404,23 @@ def check_attention(attention, dev, b, h, nq, nk, mode="rand",
         raise AssertionError("fully masked row did not give zeros")
     if not torch.isfinite(got).all().item():
         raise AssertionError("attention output is not finite")
+    scale = ref[:-1].abs().max().item()
     err = (got[:-1] - ref[:-1]).abs().max().item()
-    rel = err / ref[:-1].abs().max().item()
+    rel = err / scale
+    note = ""
+    ok = rel <= 2e-3
+    if yardstick and not ok:
+        ref32 = attention.attention_plain(q, k, v, mask)
+        to32 = (got[:-1] - ref32[:-1]).abs().max().item() / scale
+        plain_to32 = (ref[:-1] - ref32[:-1]).abs().max().item() / scale
+        ok = to32 <= plain_to32 + 1e-4
+        note = (f"; to plain f32: kernel {to32:.3e}, plain bf16 "
+                f"{plain_to32:.3e}")
     log(f"  attention B={b} H={h} Nq={nq} Nk={nk} {mode}"
         f"{' head views' if head_views else ''}: max abs err {err:.3e}, "
-        f"relative {rel:.3e}")
-    if not rel <= 2e-3:
-        raise AssertionError(f"attention kernel vs plain bf16: {rel}")
+        f"relative {rel:.3e}{note}")
+    if not ok:
+        raise AssertionError(f"attention kernel vs plain bf16: {rel}{note}")
     return err
 
 
@@ -631,6 +700,424 @@ def sift_season_path(dev, reset_counts, read_counts, scene,
     return out
 
 
+# -- phase 10: the adaptive matcher -------------------------------------------
+
+def force_confidence(lg, bias: float = 10.0) -> None:
+    """Pin every token-confidence head of `lg` to sigmoid(bias), as
+    tests/test_lightglue_adaptive.py forces them."""
+    with torch.no_grad():
+        for head in lg.confidence:
+            head.token.weight.zero_()
+            head.token.bias.fill_(bias)
+
+
+def pruning_width(lg, data, check_every: int = 3) -> float:
+    """A width confidence that, with every token confident, prunes both
+    sides of every pair of the batch `data` to at most half: the
+    smallest matchability threshold of a grid under which no side keeps
+    more than half its slots after the first segment."""
+    from icepy4d_tpu_torch.models import lightglue as lgm
+
+    with torch.inference_mode():
+        d0 = lgm._linear(lg.input_proj, data["desc0"].float())
+        d1 = lgm._linear(lg.input_proj, data["desc1"].float())
+        enc0 = lgm.rotary_encoding(lg.posenc, lgm.normalize_keypoints(
+            data["kpts0"], data["size0"]))
+        enc1 = lgm.rotary_encoding(lg.posenc, lgm.normalize_keypoints(
+            data["kpts1"], data["size1"]))
+        d0, d1 = lg._run_segment(lg.layers[:check_every], d0, d1, enc0, enc1,
+                                 data["mask0"], data["mask1"])
+        head = lg.assign[check_every - 1]
+        s0 = torch.where(data["mask0"], lgm.matchability(head, d0), 0.0)
+        s1 = torch.where(data["mask1"], lgm.matchability(head, d1), 0.0)
+    half = max(data["mask0"].shape[1], data["mask1"].shape[1]) // 2
+    for th in (0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 0.99, 0.999):
+        if max(int((s0 > th).sum(1).max()), int((s1 > th).sum(1).max())) \
+                <= half:
+            return 1.0 - th
+    raise AssertionError("no matchability threshold prunes to half")
+
+
+def valid_rows_check(attention, q, k, v, mask, label: str) -> float:
+    """The phase-3 rule on captured operands: kernel vs plain bf16,
+    relative to the output's largest magnitude, over the batch rows that
+    have a valid key (a fully masked row is zeros in the kernel and
+    the uniform average in the XLA reference)."""
+    got = attention.flash_attention(q, k, v, mask)
+    ref = attention.attention_plain(q, k, v, mask,
+                                    operand_dtype=torch.bfloat16)
+    rows = mask.any(1)
+    err = (got[rows].float() - ref[rows].float()).abs().max().item()
+    rel = err / ref[rows].float().abs().max().item()
+    log(f"  attention on {label} {tuple(q.shape)} x Nk={k.shape[2]}: max "
+        f"abs err {err:.3e}, relative {rel:.3e}")
+    if not rel <= 2e-3 or torch.count_nonzero(got[~rows]).item():
+        raise AssertionError(f"attention kernel vs plain bf16 on {label}: "
+                             f"{rel}")
+    return err
+
+
+def adaptive_path(dev, reset_counts, read_counts, img0, img1, call: dict,
+                  n_chunks_nms: int, static_warm_s: float,
+                  max_keypoints: int = 4096) -> dict:
+    """Phase 10 (see the module doc). Returns what the JSON line reports."""
+    from icepy4d_tpu_torch.matching import LightGlueMatcher
+    from icepy4d_tpu_torch.models import lightglue as lgm
+    from icepy4d_tpu_torch.ops import attention
+
+    matcher = LightGlueMatcher({"max_keypoints": max_keypoints,
+                                "adaptive": True}, device=dev)
+    captured, pruned = [], []
+    run_matcher = matcher._run_matcher
+    run_attention = lgm.masked_attention
+
+    def capture(data):
+        captured.append(data)
+        return run_matcher(data)
+
+    def capture_pruned(q, k, v, kmask):
+        if not pruned and k.shape[2] < captured[-1]["mask1"].shape[1]:
+            pruned.append(tuple(t.clone() for t in (q, k, v, kmask)))
+        return run_attention(q, k, v, kmask)
+
+    matcher._run_matcher = capture
+    lgm.masked_attention = capture_pruned
+
+    def run(label: str, **opts) -> dict:
+        matcher._depth_confidence = opts.get("depth_confidence", 0.95)
+        matcher._width_confidence = opts.get("width_confidence", 0.99)
+        captured.clear()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        matcher.match(img0, img1, **call)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        err = np.linalg.norm(matcher.mkpts0 - matcher.mkpts1 - [DX, DY],
+                             axis=1)
+        out = {"warm_s": wall, "runs": list(matcher.adaptive_runs),
+               "layers_run": [r[0] for r in matcher.adaptive_runs],
+               "launches": counts, "putative": len(matcher.inlier_mask),
+               "inliers": len(matcher.mkpts0),
+               "precision": float((err < 1.5).mean()) if len(err) else 0.0,
+               **opts}
+        log(f"  adaptive {label}: {wall:.3f} s (static warm "
+            f"{static_warm_s:.3f} s), layers run and capacities "
+            f"{out['runs']}, putative {out['putative']}, inliers "
+            f"{out['inliers']}, precision {out['precision']:.4f}, launches "
+            f"{counts}")
+        want_att = 4 * sum(out["layers_run"])
+        if counts["attention"] != want_att or counts["nms"] != n_chunks_nms:
+            raise AssertionError(f"adaptive {label}: launches {counts}, want "
+                                 f"attention {want_att}, nms {n_chunks_nms}")
+        if out["precision"] < 0.9:
+            raise AssertionError(f"adaptive {label}: precision "
+                                 f"{out['precision']} < 0.9")
+        return out
+
+    log("adaptive matcher:")
+    try:
+        run("cold")
+        res = {"default": run("warm, default confidences")}
+        lg = matcher.matcher
+        force_confidence(lg)
+        res["forced_exit"] = run("forced confidence, exit on")
+        if res["forced_exit"]["layers_run"] != [3] * len(captured):
+            raise AssertionError("the forced early exit did not fire at "
+                                 "the first checkpoint")
+        width = pruning_width(lg, captured[0])
+        pruned.clear()
+        res["forced_prune"] = run("forced confidence, exit off",
+                                  depth_confidence=0.0,
+                                  width_confidence=width)
+    finally:
+        lgm.masked_attention = run_attention
+        matcher._run_matcher = run_matcher
+    caps = [r[1] for r in res["forced_prune"]["runs"]]
+    if not pruned or max(caps) > 2048:
+        raise AssertionError(f"pruning did not fire: capacities {caps}")
+    q, k, v, kmask = pruned[0]
+    res["pruned_check_err"] = valid_rows_check(
+        attention, q, k, v, kmask, "a pruned segment's operands")
+    del captured, pruned, matcher
+    torch.cuda.empty_cache()
+    return res
+
+
+def attention_times(attention, dev, shape, seed: int = 2) -> dict:
+    """The kernel, the plain bf16 version, SDPA and the bound at one
+    (B, H, Nq, Nk) shape with a 0.9 key mask."""
+    q, k, v, mask = attention_inputs(*shape, dev, seed=seed)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    ms = cuda_ms(lambda: attention.masked_attention(qb, kb, vb, mask), 20)
+    plain = cuda_ms(lambda: attention.attention_plain(
+        qb, kb, vb, mask, operand_dtype=torch.bfloat16), 5)
+    sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=mask[:, None, None, :]), 20)
+    b, h, nq, nk = shape
+    bound, by = lower_bound(
+        b * h * 64 * (2 * nq + 4 * nk) + b * nk + b * h * nq * (64 + 1) * 4,
+        4 * b * h * nq * nk * 64, BF16_FLOPS)
+    log(f"  attention {shape}: kernel {ms:.4f} ms, plain {plain:.4f}, SDPA "
+        f"{sdpa:.4f}, bound {bound:.4f} ({by})")
+    return {"shape": shape, "ms": ms, "plain_ms": plain, "library_ms": sdpa,
+            "bound_ms": bound, "bound_by": by}
+
+
+# -- phase 11: the n-camera season --------------------------------------------
+
+def multicam_config(dev, root, n_epochs: int):
+    """Render the 3-camera full-size season on `dev` under `root`; the
+    config is phase 7's (tiles, keypoints, "metashape" BA block) with
+    tracking, space resection and homography warping on."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_port_inputs import StereoSeason
+
+    scene = StereoSeason(H_IMG, W_IMG, SEASON_F, baseline=SEASON_BASELINE,
+                         cell_px=SEASON_CELL_PX, device=dev, n_cameras=3)
+    cfg = scene.write(root, n_epochs=n_epochs, max_keypoints=SEASON_KEYPOINTS)
+    cfg["matching"].update(tile_selection="exhaustive", grid=[2, 2],
+                           overlap=round(200 * W_IMG / 6012))
+    cfg["ba"] = {"free_intrinsics": "metashape"}
+    cfg["proc"].update(do_tracking=True, do_space_resection=True,
+                       do_homography_warping=True, save_checkpoints=False)
+    del scene.tex
+    torch.cuda.empty_cache()
+    return scene, cfg
+
+
+def covariance_check(dev, problem) -> dict:
+    """Epoch 0's BA problem again with compute_covariance and the
+    master's pose fixed, and the same covariance function on the same
+    solution in float64. (The n-camera BA takes no targets, and the
+    season's camera centres lie on one line: with every pose free, the
+    rotation about that line is a null direction of the reduced camera
+    system and no covariance exists. Fixing the master is the datum.)"""
+    from icepy4d_tpu_torch.ops.ba import BAProblem, lm_solve, point_covariances
+    from icepy4d_tpu_torch.sfm import BundleAdjustment
+
+    args, kwargs = problem
+    cfg = kwargs["cfg"]
+    cfg.compute_covariance = True
+    cfg.fix_cameras = [next(iter(args[0]))]
+    ba = BundleAdjustment(*args, device=dev, **kwargs)
+    out = ba.run()
+    leaves, _, n_tie = ba._assemble_numpy()
+    free = (0, 1) if cfg.fit_f and not cfg.free_intrinsics \
+        else tuple(cfg.free_intrinsics)
+    prob = BAProblem.from_numpy(dev, **leaves)
+    res = lm_solve(prob, free_intr=free, max_iters=cfg.max_iters,
+                   robust_delta=cfg.robust_delta)
+    cov32 = point_covariances(prob, res.cam_theta, res.intrinsics,
+                              res.points, free_intr=free,
+                              robust_delta=cfg.robust_delta)
+    prob64 = BAProblem(*(t.double() if t.is_floating_point() else t
+                         for t in prob))
+    cov64 = point_covariances(prob64, res.cam_theta.double(),
+                              res.intrinsics.double(), res.points.double(),
+                              free_intr=free, robust_delta=cfg.robust_delta)
+    cov32, cov64 = cov32[:n_tie].double(), cov64[:n_tie]
+
+    def rel(a, b):
+        return (torch.linalg.matrix_norm(a - b)
+                / torch.linalg.matrix_norm(b)).max().item()
+
+    entry = torch.as_tensor(out.point_covariances, device=dev).double()
+    stats = {"points": n_tie, "rel_frobenius_f32_vs_f64": rel(cov32, cov64),
+             "rel_frobenius_entry_vs_f64": rel(entry, cov64),
+             "asymmetry": rel(cov32, cov32.mT),
+             "min_eigenvalue": torch.linalg.eigvalsh(cov64).min().item()}
+    log(f"  covariances of epoch 0's {n_tie} tie points: {stats}")
+    if not (stats["rel_frobenius_f32_vs_f64"] <= 1e-2
+            and stats["rel_frobenius_entry_vs_f64"] <= 1e-2
+            and stats["asymmetry"] <= 1e-3 and stats["min_eigenvalue"] > 0):
+        raise AssertionError(f"point covariances: {stats}")
+    return stats
+
+
+def multicam_path(dev, reset_counts, read_counts, scene, cfg: dict,
+                  expected: list) -> dict:
+    """Phase 11 (see the module doc). Returns what the JSON line reports."""
+    from icepy4d_tpu_torch.pipeline import Pipeline
+
+    class Recording(Pipeline):
+        """The Pipeline with its first BA problem kept."""
+
+        problem = None
+
+        def _solve(self, *args, **kwargs):
+            if self.problem is None:
+                self.problem = (args, dict(kwargs))
+            return super()._solve(*args, **kwargs)
+
+    pipe = Recording(cfg)
+    epochs, run_s, counts = run_season(pipe, reset_counts, read_counts)
+    master = pipe.cams[0]
+    stats = []
+    for e in epochs:
+        st = dict(e.quality["stats"], status=e.quality["status"],
+                  flags=e.quality["flags"], n_points=len(e.points),
+                  median_surface_dist_m=float(np.median(
+                      scene.surface_distance(e.points.to_numpy()))))
+        st["rel_rotation_err_deg"] = max(
+            rotation_error_deg(e, [master, sl]) for sl in pipe.cams[1:])
+        stats.append(st)
+    res = Path(cfg["paths"]["results_dir"])
+    warped = sorted((res / "warped").glob("warped_*.jpg"))
+    import cv2
+
+    ref_warp = cv2.imread(str(warped[0])) if warped else None
+    nonzero = float((ref_warp > 0).mean()) if ref_warp is not None else 0.0
+    log(f"n-camera season: {len(epochs)} epochs of 3 {W_IMG}x{H_IMG} "
+        f"frames, run {run_s:.1f} s")
+    for ep, t in pipe.stage_times.items():
+        log(f"  epoch {ep} ({'cold' if ep == 0 else 'warm'}): "
+            + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                        f"{k} {v}" for k, v in t.items()))
+    for st, c in zip(stats, counts):
+        log(f"  {st['status']} {st['flags']}: "
+            + ", ".join(f"{k} {st[k]}" for k in sorted(st)
+                        if k.startswith(("n_", "ba_"))) +
+            f", worst slave rotation {st['rel_rotation_err_deg']:.5f} deg, "
+            f"median surface distance {st['median_surface_dist_m']:.4f} m, "
+            f"launches {c}")
+    log(f"  warped images {[p.name for p in warped]}, reference epoch's "
+        f"warp non-zero on {nonzero:.4f}")
+    cov = covariance_check(dev, pipe.problem)
+    for st, c, want in zip(stats, counts, expected):
+        check_epoch(st, MULTICAM_GATES)
+        if st["n_points"] < MULTICAM_GATES["points"]:
+            raise AssertionError(f"{st['n_points']} tie points < "
+                                 f"{MULTICAM_GATES['points']}")
+        if c != want:
+            raise AssertionError(f"epoch launches {c} != {want}")
+    if len(epochs) != len(expected) or len(warped) != len(epochs) \
+            or not nonzero > 0.5:
+        raise AssertionError(f"{len(epochs)} epochs, warped {warped}, "
+                             f"reference warp non-zero {nonzero}")
+    return {"run_s": run_s,
+            "stage_times_s": {str(k): v for k, v in pipe.stage_times.items()},
+            "epochs": stats, "launches": counts, "warped": len(warped),
+            "reference_warp_nonzero": nonzero, "covariances": cov}
+
+
+# -- phase 12: PnP, MAGSAC, resection in the season, the match writer ---------
+
+def pnp_check(dev) -> dict:
+    """SpaceResection and its PnP RANSAC on 12 noise-free GCPs 40-60 m in
+    front of a turned camera, 3 of them moved by 40-90 px."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from icepy4d_tpu_torch.core import Camera
+    from icepy4d_tpu_torch.sfm import SpaceResection
+    from torch_port_inputs import rotation_zyx
+
+    rng = np.random.default_rng(1)
+    K = np.array([[6000.0, 0, W_IMG / 2], [0, 6000.0, H_IMG / 2], [0, 0, 1]],
+                 np.float32)
+    R = rotation_zyx(0.2, -0.05, 0.03).astype(np.float64)
+    C = np.array([503.0, 1198.0, 301.0])
+    Xc = np.c_[rng.uniform(-12, 12, (12, 2)), rng.uniform(40, 60, 12)]
+    X = (Xc @ R + C).astype(np.float32)
+    E = np.eye(4, dtype=np.float32)
+    E[:3, :3] = R
+    E[:3, 3] = -R @ C
+    truth = Camera.create(width=W_IMG, height=H_IMG, K=K, extrinsics=E)
+    uv = truth.project_point(X)
+    uv[:3] += rng.uniform(40, 90, (3, 2)) * rng.choice([-1, 1], (3, 2))
+    start = Camera.create(width=W_IMG, height=H_IMG, K=K,
+                          extrinsics=np.eye(4, dtype=np.float32))
+    sr = SpaceResection(start, device=dev)
+    cam = sr.estimate(uv, X)
+    inl = sr.inliers
+    rel = np.asarray(cam.R, np.float64) @ R.T
+    s = np.linalg.norm([rel[2, 1] - rel[1, 2], rel[0, 2] - rel[2, 0],
+                        rel[1, 0] - rel[0, 1]]) / 2
+    out = {"rotation_err_deg": float(np.degrees(np.arctan2(
+               s, (np.trace(rel) - 1) / 2))),
+           "center_err_m": float(np.linalg.norm(np.asarray(cam.C).ravel()
+                                                - C)),
+           "inliers": int(inl.sum()),
+           "outliers_rejected": bool(not inl[:3].any() and inl[3:].all())}
+    log(f"  space resection, 12 GCPs with 3 outliers: {out}")
+    if not (out["outliers_rejected"] and out["rotation_err_deg"] <= 0.01
+            and out["center_err_m"] <= 0.01):
+        raise AssertionError(f"space resection: {out}")
+    return out
+
+
+def magsac_check(dev, putatives) -> dict:
+    """MAGSAC (sigma_max 1 px) on phase 4's putatives."""
+    from icepy4d_tpu_torch.matching import GeometricVerification
+    from icepy4d_tpu_torch.matching.geometric_verification import \
+        geometric_verification
+
+    mk0, mk1, conf = putatives
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, inl = geometric_verification(mk0, mk1,
+                                    method=GeometricVerification.MAGSAC,
+                                    threshold=1.0, scores=conf, device=dev)
+    wall = time.perf_counter() - t0
+    err = np.linalg.norm(mk0[inl] - mk1[inl] - [DX, DY], axis=1)
+    out = {"putative": len(mk0), "inliers": int(inl.sum()), "s": wall,
+           "precision": float((err < 1.5).mean()) if len(err) else 0.0}
+    log(f"  MAGSAC on phase 4's putatives: {out}")
+    if out["precision"] < 0.9:
+        raise AssertionError(f"MAGSAC precision {out['precision']} < 0.9")
+    return out
+
+
+def resection_season_path(base_cfg: dict, n_epochs: int) -> dict:
+    """Phase 7's frames through a stereo Pipeline with do_space_resection
+    and other.do_viz (no tracking, dense or checkpoints)."""
+    import copy
+
+    from icepy4d_tpu_torch.pipeline import Pipeline
+
+    class Recording(Pipeline):
+        """The Pipeline with the cameras' centres kept right after each
+        space resection."""
+
+        resected: list = []
+
+        def _space_resection(self, epoch, centers):
+            super()._space_resection(epoch, centers)
+            self.resected.append({c: np.asarray(epoch.cameras[c].C,
+                                                np.float64).ravel()
+                                  for c in self.cams})
+
+    cfg = copy.deepcopy(base_cfg)
+    cfg["paths"]["results_dir"] = str(
+        Path(cfg["paths"]["image_dir"]).parent / "res_resection")
+    cfg["proc"].update(do_space_resection=True, save_checkpoints=False,
+                       epoch_to_process=list(range(n_epochs)))
+    cfg["other"] = dict(cfg.get("other", {}), do_viz=True)
+    pipe = Recording(cfg)
+    pipe.resected = []
+    epochs = list(pipe.run())
+    centers = np.asarray(cfg["georef"]["camera_centers_world"], np.float64)
+    errs = [max(float(np.linalg.norm(r[c] - centers[i]))
+                for i, c in enumerate(pipe.cams)) for r in pipe.resected]
+    files = [sorted(p.name for p in Path(e.epoch_dir).iterdir())
+             for e in epochs]
+    targets = [{k: v for k, v in e.quality["stats"].items()
+                if k.startswith("resection")} for e in epochs]
+    out = {"epochs": len(epochs), "status": [e.quality["status"]
+                                             for e in epochs],
+           "resection_targets": targets, "center_err_m": errs,
+           "files": files}
+    log(f"  stereo season with space resection and do_viz: {out}")
+    want = {"matches.png", "keypoints_0.txt", "keypoints_1.txt"}
+    if len(epochs) != n_epochs or len(errs) != n_epochs \
+            or any(e > 1e-3 for e in errs) \
+            or any(sorted(t) != [f"resection_targets_{c}" for c in pipe.cams]
+                   for t in targets) \
+            or any(not want <= set(f) for f in files):
+        raise AssertionError(f"space resection season: {out}")
+    return out
+
+
 def main() -> None:
     # -- 1. card ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -706,6 +1193,12 @@ def main() -> None:
                             head_views=head_views)
     att_shape = (16, 4, 4096, 4096)      # the main path's tile-pair batch
     att_err = check_attention(attention, dev, *att_shape)
+    # the adaptive LightGlue's packed capacities over the same batch
+    caps = (64, 128, 256, 512, 1024, 2048)
+    for nq in caps:
+        for nk in caps:
+            check_attention(attention, dev, att_shape[0], 4, nq, nk,
+                            mode="prefix", head_views=True, yardstick=True)
     check_sweep(dense, *sweep_inputs(dev, 67, 45, 2.3), -6.0, 6.0, 25, 5,
                 "small")
     check_sweep(dense, *sweep_inputs(dev, 161, 203, 5.3), -12.0, 12.0, 49,
@@ -741,6 +1234,15 @@ def main() -> None:
         return run_nms(heat, *a)
 
     sp_module.fused_nms_border = capture_heat
+    from icepy4d_tpu_torch.matching import matchers as matchers_module
+    putatives = []               # the warm run's verification inputs
+    run_gv = matchers_module.geometric_verification
+
+    def capture_gv(mk0, mk1, **kw):
+        putatives[:] = [mk0.copy(), mk1.copy(), np.asarray(kw["scores"])]
+        return run_gv(mk0, mk1, **kw)
+
+    matchers_module.geometric_verification = capture_gv
     call = dict(quality=Quality.HIGH, tile_selection=TileSelection.EXHAUSTIVE,
                 grid=[2, 2], overlap=200,
                 geometric_verification=GeometricVerification.PYDEGENSAC,
@@ -757,6 +1259,7 @@ def main() -> None:
         times[run] = time.perf_counter() - t0
         launches = read_counts()
     sp_module.fused_nms_border = run_nms
+    matchers_module.geometric_verification = run_gv
     stages = dict(matcher.timer.times)
     n_put = len(matcher.inlier_mask)
     n_inl = len(matcher.mkpts0)
@@ -831,8 +1334,19 @@ def main() -> None:
         raise AssertionError(f"bf16-trunk match agreement {agree['bf16']} "
                              f"below the yardstick {yardstick}")
 
+    # the seeded forward of an n-camera tracked epoch: three cameras'
+    # 2 x 2 tiles as 12 tile-diagonal pairs
+    seed_chunk3 = matcher._auto_chunk(12, (k + 1) ** 2 * 4 * 4,
+                                      budget=6 << 30)
+    seeded_attention3 = 4 * n_layers * (12 // seed_chunk3)
     del data, captured, lg32, matcher, heats
     torch.cuda.empty_cache()
+
+    # -- 10. adaptive matcher ---------------------------------------------------
+    adaptive = adaptive_path(dev, reset_counts, read_counts, img0, img1,
+                             call, n_chunks, times["warm"])
+    adaptive["attention_times"] = [
+        attention_times(attention, dev, (16, 4, n, n)) for n in (512, 2048)]
 
     # -- 6. dense path ---------------------------------------------------------
     cams, imgs = plane_pair()
@@ -908,6 +1422,35 @@ def main() -> None:
         torch.cuda.empty_cache()
         sift_season = sift_season_path(dev, reset_counts, read_counts, scene,
                                        season_cfg)
+        torch.cuda.empty_cache()
+        # -- 12 (in part). space resection and do_viz in a stereo season
+        log("PnP, MAGSAC, space resection and the match writer:")
+        pnp = {"space_resection": pnp_check(dev),
+               "magsac": magsac_check(dev, putatives),
+               "season": resection_season_path(season_cfg, n_epochs=2)}
+        del scene
+    torch.cuda.empty_cache()
+
+    # -- 11. n-camera season -----------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scene3, cfg3 = multicam_config(dev, tmp, n_epochs=3)
+        log(f"n-camera season frames written in {time.perf_counter() - t0:.1f}"
+            " s")
+        # an epoch matches the master against both slaves (phase 4's
+        # launches each: a match extracts both frames, so the master once
+        # per slave); a tracked epoch first extracts all three frames for
+        # the seeded forward (the feature cache holds one pair) and runs
+        # that forward over 12 tile pairs
+        per_image = launches["nms"] // 2
+        first3 = {"nms": 2 * launches["nms"],
+                  "attention": 2 * launches["attention"], "sweep": 0}
+        tracked3 = {"nms": first3["nms"] + 3 * per_image,
+                    "attention": first3["attention"] + seeded_attention3,
+                    "sweep": 0}
+        multicam = multicam_path(dev, reset_counts, read_counts, scene3,
+                                 cfg3, [first3, tracked3, tracked3])
+        del scene3
     torch.cuda.empty_cache()
 
     # -- 9. times --------------------------------------------------------------
@@ -976,7 +1519,9 @@ def main() -> None:
             "stages_s": dense_stages, "valid_inner": valid_inner,
             "median_rel_depth_err": depth_err, "median_abs_z_err_m": z_err,
             "sweep_shape": sweep_shape},
-        "season_path": season, "sift_season_path": sift_season}))
+        "season_path": season, "sift_season_path": sift_season,
+        "adaptive_path": adaptive, "multicam_path": multicam,
+        "pnp_magsac_resection": pnp}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@
   PYDEGENSAC -> hypothesis-parallel F-RANSAC with DEGENSAC-style
                 plane-degeneracy detection and plane-and-parallax
                 recovery (ops/ransac.py::ransac_fundamental_degensac)
-  MAGSAC     -> not ported yet
+  MAGSAC     -> sigma-consensus F estimation with a weighted polish
+                (ops/ransac.py::ransac_fundamental_magsac)
   JAX_RANSAC -> plain fixed-threshold Sampson RANSAC
                 (ops/ransac.py::ransac_fundamental); the name is kept so
                 configurations carry over unchanged

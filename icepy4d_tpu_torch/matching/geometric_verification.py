@@ -3,7 +3,8 @@
 
   PYDEGENSAC -> F-RANSAC + H-degeneracy test + plane-and-parallax recovery
   JAX_RANSAC -> plain fixed-threshold Sampson RANSAC
-  MAGSAC     -> not ported yet (raises NotImplementedError)
+  MAGSAC     -> sigma-consensus scoring with no fixed inlier threshold
+                (`threshold` is sigma_max)
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from icepy4d_tpu_torch.device import resolve_device
 from icepy4d_tpu_torch.matching.enums import GeometricVerification
 from icepy4d_tpu_torch.ops.buckets import pad_bucket
 from icepy4d_tpu_torch.ops.ransac import (ransac_fundamental,
-                                          ransac_fundamental_degensac)
+                                          ransac_fundamental_degensac,
+                                          ransac_fundamental_magsac)
 
 logger = logging.getLogger("icepy4d_tpu_torch")
 
@@ -50,15 +52,14 @@ def geometric_verification(
     """(mkpts0, mkpts1) -> (F (3,3) float64 | None, inlier mask (N,) bool).
 
     `scores` (N,) turn on quality-guided sampling. Hypotheses run in
-    parallel on `device`, so the whole budget is always spent.
+    parallel on `device`, so the whole budget is always spent. For
+    MAGSAC, `threshold` is sigma_max.
     """
     mkpts0 = np.asarray(mkpts0, np.float32)
     mkpts1 = np.asarray(mkpts1, np.float32)
     n = mkpts0.shape[0]
     if method is GeometricVerification.NONE:
         return None, np.ones(n, bool)
-    if method is GeometricVerification.MAGSAC:
-        raise NotImplementedError("MAGSAC verification is not ported yet")
     if n < MIN_MATCHES:
         if not quiet:
             logger.warning(
@@ -93,6 +94,10 @@ def geometric_verification(
                 logger.info(
                     "Geometric verification: dominant-plane degeneracy "
                     "detected, plane-and-parallax recovery applied")
+        elif method is GeometricVerification.MAGSAC:
+            F, inl = ransac_fundamental_magsac(
+                gen, x0, x1, mask, sigma_max=float(threshold),
+                n_hypotheses=n_hyp, guidance=guidance)
         else:  # JAX_RANSAC: plain fixed-threshold Sampson RANSAC
             F, inl = ransac_fundamental(
                 gen, x0, x1, mask, threshold=float(threshold),

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import logging
 from itertools import product
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -65,6 +66,11 @@ def _host_gray(im):
 
         return cv2.cvtColor(im, cv2.COLOR_RGB2GRAY)
     return im
+
+
+def _host_image(im) -> np.ndarray:
+    """A host array of an image given as an array or a tensor."""
+    return im.cpu().numpy() if torch.is_tensor(im) else np.asarray(im)
 
 
 def _to_device(im, device: torch.device) -> torch.Tensor:
@@ -508,7 +514,9 @@ class ImageMatcherBase:
         """Match two images; results land in the mkpts0/1... properties.
 
         quality resize -> (full | tiled) matching -> rescale keypoints ->
-        geometric verification -> inlier filtering."""
+        geometric verification -> inlier filtering. With `save_dir`,
+        the matched keypoints are written there as text, and with
+        `do_viz_matches` too the match mosaic as matches.png."""
         self.timer = AverageTimer(device=self.device)
         self._reset()
         gv_method = config.get("geometric_verification",
@@ -556,8 +564,28 @@ class ImageMatcherBase:
             self._filter_matches_by_mask(mask)
             self.timer.update("geometric_verification")
 
+        save_dir = config.get("save_dir", None)
+        if bool(config.get("do_viz_matches", False)) and save_dir is not None:
+            from icepy4d_tpu_torch.visualization import plot_matches_cv2
+
+            plot_matches_cv2(_host_image(image0), _host_image(image1),
+                             self._mkpts0, self._mkpts1,
+                             path=str(Path(save_dir) / "matches.png"))
+        if save_dir is not None:
+            self.save_mkpts_as_txt(save_dir)
         self.timer.print("Matching")
         return True
+
+    def save_mkpts_as_txt(self, savedir, delimiter: str = ",",
+                          header: str = "x,y") -> None:
+        """Write the matched keypoints to keypoints_0.txt and
+        keypoints_1.txt under `savedir` (two decimals, a header line)."""
+        path = Path(savedir)
+        path.mkdir(parents=True, exist_ok=True)
+        for name, arr in (("keypoints_0.txt", self._mkpts0),
+                          ("keypoints_1.txt", self._mkpts1)):
+            np.savetxt(path / name, arr, fmt="%.2f", delimiter=delimiter,
+                       newline="\n", header=header)
 
     def _filter_matches_by_mask(self, mask: np.ndarray) -> None:
         """Keep inliers only."""
@@ -575,7 +603,10 @@ class LightGlueMatcher(ImageMatcherBase):
 
     opt keys: max_keypoints (default 4096), filter_threshold (0.1),
     n_layers (9), activation_dtype (LightGlue trunk, "bfloat16"),
-    adaptive (raises: the adaptive forward is not ported),
+    adaptive (False: `LightGlue.match_adaptive`, early exit and point
+    pruning, f32 trunk, tuned by depth_confidence (0.95) and
+    width_confidence (0.99); `adaptive_runs` then holds (layers run,
+    capacity) of each pair chunk of the last match),
     superpoint_weights / lightglue_weights (.npz paths) or
     superpoint_params / matcher_params (parameter trees in the JAX
     layout). With no weights given, the repository's bundled
@@ -583,11 +614,9 @@ class LightGlueMatcher(ImageMatcherBase):
     """
 
     def _build_models(self, opt: dict) -> None:
-        if opt.get("adaptive", False):
-            raise NotImplementedError(
-                "matching.options.adaptive (LightGlue.match_adaptive: early "
-                "exit and point pruning, with depth_confidence and "
-                "width_confidence) is not ported to icepy4d_tpu_torch yet")
+        self._adaptive = bool(opt.get("adaptive", False))
+        self._depth_confidence = float(opt.get("depth_confidence", 0.95))
+        self._width_confidence = float(opt.get("width_confidence", 0.99))
         self.matcher = LightGlue(
             n_layers=int(opt.get("n_layers", 9)),
             filter_threshold=float(opt.get("filter_threshold", 0.1)),
@@ -599,7 +628,18 @@ class LightGlueMatcher(ImageMatcherBase):
             opt, "matcher_params", "lightglue_weights",
             "lightglue_synthetic.npz")))
 
+    def _reset(self) -> None:
+        super()._reset()
+        self.adaptive_runs: list[tuple[int, int]] = []
+
     def _run_matcher(self, data: dict) -> dict:
+        if self._adaptive:
+            out = self.matcher.match_adaptive(
+                data, depth_confidence=self._depth_confidence,
+                width_confidence=self._width_confidence)
+            self.adaptive_runs.append((out["layers_run"], out["capacity"]))
+            return {k: out[k] for k in ("matches0", "matches1", "mscores0",
+                                        "mscores1")}
         return self.matcher.match(data)
 
 

@@ -1,5 +1,5 @@
-"""LightGlue matcher in PyTorch, static depth (counterpart of the
-`match` forward of `icepy4d_tpu/models/lightglue.py`).
+"""LightGlue matcher in PyTorch (counterpart of the `match` and
+`match_adaptive` forwards of `icepy4d_tpu/models/lightglue.py`).
 
   learnable Fourier rotary positional encoding
   n_layers x (rotary self-attention + bidirectional cross-attention,
@@ -15,6 +15,7 @@ unless the caller passes another function as `attn`.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -137,6 +138,14 @@ def match_assignment(p: nn.Module, d0, d1, mask0, mask1) -> torch.Tensor:
     return sigmoid_log_double_softmax(sim, z0, z1, mask0, mask1)
 
 
+def matchability(p: nn.Module, d: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(_linear(p.matchability, d)[..., 0])
+
+
+def token_confidence(p: nn.Module, d: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(_linear(p.token, d)[..., 0])
+
+
 def filter_matches(scores: torch.Tensor, th: float):
     """Mutual-max match extraction from the log assignment.
 
@@ -168,7 +177,8 @@ def _ffn_module(d: int) -> nn.ModuleDict:
 
 
 class LightGlue(nn.Module):
-    """Static-depth batched LightGlue.
+    """Batched LightGlue: `match` at static depth, `match_adaptive` with
+    early exit and point pruning.
 
     match(data) where data = dict(
       kpts0 (B,M,2), desc0 (B,M,D), mask0 (B,M), size0 (B,2) or None,
@@ -259,3 +269,130 @@ class LightGlue(nn.Module):
             "mscores1": torch.where(mask1, ms1, 0.0),
             "log_assignment": scores,
         }
+
+    # -- adaptive depth and width ------------------------------------------
+
+    def confidence_threshold(self, layer_index: int) -> float:
+        """Token-confidence exit threshold after layer `layer_index`."""
+        return 0.8 + 0.1 * float(np.exp(-4.0 * layer_index / self.n_layers))
+
+    def _run_segment(self, layers, d0, d1, enc0, enc1, mask0, mask1,
+                     attn=None):
+        nh = self.num_heads
+        for layer in layers:
+            d0 = self_block(layer.self_attn, d0, enc0, mask0, nh, attn)
+            d1 = self_block(layer.self_attn, d1, enc1, mask1, nh, attn)
+            d0, d1 = cross_block(layer.cross_attn, d0, d1, mask0, mask1, nh,
+                                 attn)
+        return d0, d1
+
+    @staticmethod
+    def _gather_side(d, cos, sin, keep, cap: int):
+        """Pack the `cap` highest-ranked tokens of one side: kept tokens
+        first, each group in index order (a stable sort on the 0/1 keep
+        scores, the order of the JAX package's top-k). Returns packed
+        (d, cos, sin, mask, idx), idx mapping packed slot -> input slot."""
+        idx = torch.sort(keep.to(torch.float32), dim=1, descending=True,
+                         stable=True).indices[:, :cap]
+
+        def take(a):
+            return torch.gather(a, 1, idx[..., None].expand(
+                -1, -1, a.shape[-1]))
+
+        return (take(d), take(cos), take(sin), torch.gather(keep, 1, idx),
+                idx)
+
+    @torch.inference_mode()
+    def match_adaptive(self, data: dict, depth_confidence: float = 0.95,
+                       width_confidence: float = 0.99, check_every: int = 3,
+                       min_capacity: int = 64, attn=None) -> dict:
+        """Adaptive-depth and -width forward (counterpart of
+        `LightGlue.match_adaptive` in the JAX package), in f32 whatever
+        the activation dtype, as there.
+
+        The layers run in segments of `check_every`. After each segment's
+        last layer j: if the share of confident tokens (token confidence
+        above `confidence_threshold(j)`), counted over the whole pair
+        batch, reaches `depth_confidence`, the forward stops and layer
+        j's assignment head gives the matches; otherwise tokens that are
+        confident with matchability at most 1 - `width_confidence` are
+        pruned: the rest are packed into a power-of-two capacity (at
+        least `min_capacity`, and only when it is at most half the
+        larger input side), the padding masked. Matches are mapped back
+        to the input slots. Each segment's blocks run through
+        `ops.attention.masked_attention` (or `attn`), so pruned segments
+        launch the attention kernel at their packed shapes.
+
+        Returns match()'s dict without "log_assignment", plus
+        "layers_run" and "capacity" (side 0's final capacity)."""
+        data = {k: v.to(self.device) if isinstance(v, torch.Tensor) else v
+                for k, v in data.items()}
+        mask0, mask1 = data["mask0"], data["mask1"]
+        b, m = mask0.shape
+        n = mask1.shape[1]
+        d0 = _linear(self.input_proj, data["desc0"].float())
+        d1 = _linear(self.input_proj, data["desc1"].float())
+        enc0 = rotary_encoding(self.posenc, normalize_keypoints(
+            data["kpts0"], data.get("size0")))
+        enc1 = rotary_encoding(self.posenc, normalize_keypoints(
+            data["kpts1"], data.get("size1")))
+        dev = mask0.device
+        idx0 = torch.arange(m, device=dev).expand(b, m)
+        idx1 = torch.arange(n, device=dev).expand(b, n)
+
+        start, exited_at = 0, self.n_layers
+        assign = self.assign[-1]
+        for j in range(check_every, self.n_layers, check_every):
+            d0, d1 = self._run_segment(self.layers[start:j], d0, d1, enc0,
+                                       enc1, mask0, mask1, attn)
+            start, li = j, j - 1
+            th = self.confidence_threshold(li)
+            conf0 = (token_confidence(self.confidence[li], d0) > th) & mask0
+            conf1 = (token_confidence(self.confidence[li], d1) > th) & mask1
+            nvalid = int(mask0.sum() + mask1.sum())
+            ratio = int(conf0.sum() + conf1.sum()) / max(nvalid, 1)
+            if depth_confidence > 0 and ratio >= depth_confidence:
+                exited_at, assign = j, self.assign[li]
+                break
+            if width_confidence > 0:
+                prune_th = 1.0 - width_confidence
+                keep0 = mask0 & (~conf0 | (matchability(
+                    self.assign[li], d0) > prune_th))
+                keep1 = mask1 & (~conf1 | (matchability(
+                    self.assign[li], d1) > prune_th))
+                cap = max(int(keep0.sum(1).max()) if b else 0,
+                          int(keep1.sum(1).max()) if b else 0, min_capacity)
+                cap = 1 << (cap - 1).bit_length()
+                if cap <= max(m, n) // 2:
+                    d0, c0, s0, mask0, g0 = self._gather_side(
+                        d0, *enc0, keep0, cap)
+                    d1, c1, s1, mask1, g1 = self._gather_side(
+                        d1, *enc1, keep1, cap)
+                    enc0, enc1 = (c0, s0), (c1, s1)
+                    idx0 = torch.gather(idx0, 1, g0)
+                    idx1 = torch.gather(idx1, 1, g1)
+        else:
+            d0, d1 = self._run_segment(self.layers[start:], d0, d1, enc0,
+                                       enc1, mask0, mask1, attn)
+
+        scores = match_assignment(assign, d0, d1, mask0, mask1)
+        pm0, pm1, pms0, pms1 = filter_matches(scores, self.filter_threshold)
+        pm0 = torch.where(mask0, pm0, -1)
+        pm1 = torch.where(mask1, pm1, -1)
+        pms0 = torch.where(mask0, pms0, 0.0)
+        pms1 = torch.where(mask1, pms1, 0.0)
+
+        def scatter(idx_self, idx_other, pm, pms, size):
+            tgt = torch.where(pm > -1, torch.gather(
+                idx_other, 1, pm.clamp_min(0).long()), -1)
+            matches = torch.full((b, size), -1, dtype=torch.int32,
+                                 device=dev)
+            scores_out = torch.zeros((b, size), device=dev)
+            return (matches.scatter_(1, idx_self, tgt.to(torch.int32)),
+                    scores_out.scatter_(1, idx_self, pms))
+
+        matches0, mscores0 = scatter(idx0, idx1, pm0, pms0, m)
+        matches1, mscores1 = scatter(idx1, idx0, pm1, pms1, n)
+        return {"matches0": matches0, "matches1": matches1,
+                "mscores0": mscores0, "mscores1": mscores1,
+                "layers_run": exited_at, "capacity": int(mask0.shape[1])}

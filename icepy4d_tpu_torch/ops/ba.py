@@ -1,6 +1,7 @@
 """Sparse Levenberg-Marquardt bundle adjustment with Schur elimination.
 
-Counterpart of `icepy4d_tpu/ops/ba.py::lm_solve`. Observations live on a
+Counterpart of `icepy4d_tpu/ops/ba.py`: `lm_solve`, `lm_solve_batched`
+and `point_covariances`. Observations live on a
 dense (P points x C cameras) grid with validity weights. The Jacobian
 of each observation's residual comes from `torch.func.jacfwd` of the
 full OpenCV projection (rational distortion), vmapped over the
@@ -126,6 +127,74 @@ def _grid(prob: BAProblem, theta, intr, points):
             prob.obs_xy.reshape(p * c, 2), prob.obs_w.reshape(p * c))
 
 
+def _obs_jac(free_intr: tuple):
+    """vmapped forward-mode Jacobians (w.r.t. the packed camera
+    parameters and the point) of every observation's residual, with the
+    residual itself as the auxiliary output."""
+    def resid_pair(theta, X, intr_b, xy, w):
+        r = _project_resid(theta, X, intr_b, xy, w, free_intr)
+        return r, r
+
+    return vmap(jacfwd(resid_pair, argnums=(0, 1), has_aux=True))
+
+
+def _observation_jacobians(prob: BAProblem, theta, intr, points,
+                           free_intr: tuple, robust_delta, obs_jac):
+    """(r_obs (P, C, 2), J_t (P, C, 2, B), J_x (P, C, 2, 3)) of the grid,
+    IRLS-reweighted by sqrt(rho') with a Huber band."""
+    p, c = prob.obs_w.shape
+    (J_t, J_x), r_obs = obs_jac(*_grid(prob, theta[None], intr[None],
+                                       points))
+    r_obs = r_obs.reshape(p, c, 2)
+    J_t = J_t.reshape(p, c, 2, -1)
+    J_x = J_x.reshape(p, c, 2, 3)
+    if robust_delta is not None:
+        rw = _huber_irls_weight((r_obs ** 2).sum(-1), robust_delta)
+        r_obs = r_obs * rw[..., None]
+        J_t = J_t * rw[..., None, None]
+        J_x = J_x * rw[..., None, None]
+    return r_obs, J_t, J_x
+
+
+def _blocks(J_t, J_x):
+    """Normal-equation blocks U (C, B, B), V (P, 3, 3), W (P, C, B, 3)."""
+    return (torch.einsum("pcib,pcid->cbd", J_t, J_t),
+            torch.einsum("pcib,pcid->pbd", J_x, J_x),
+            torch.einsum("pcib,pcid->pcbd", J_t, J_x))
+
+
+def _center_jacobian(prob: BAProblem, cam_theta, ni: int, cc_jac):
+    """Jacobian (C, 3, B) of the camera-centre priors (zero on the free
+    intrinsics)."""
+    J_cc = cc_jac(cam_theta, prob.cam_prior, prob.cam_prior_w)  # (C, 3, 6)
+    if ni:
+        J_cc = torch.cat([J_cc, J_cc.new_zeros(J_cc.shape[:2] + (ni,))], 2)
+    return J_cc
+
+
+def _point_prior_information(prob: BAProblem):
+    """w^2 I of the point priors, (P, 3, 3)."""
+    eye3 = torch.eye(3, dtype=prob.points.dtype, device=prob.points.device)
+    return (prob.pt_prior_w[:, None] ** 2)[..., None] * eye3
+
+
+def _free_params(prob: BAProblem, ni: int):
+    """(C * B,) 1 for a free parameter, 0 for a fixed camera's pose
+    parameter (a fixed camera's free intrinsics stay adjustable)."""
+    c = prob.cam_fixed.shape[0]
+    pose_fixed = prob.cam_fixed[:, None].expand(c, 6)
+    if ni:
+        pose_fixed = torch.cat([pose_fixed, torch.zeros(
+            (c, ni), dtype=torch.bool, device=pose_fixed.device)], 1)
+    return 1.0 - pose_fixed.reshape(-1).to(prob.points.dtype)
+
+
+def _freeze(Sd, freef):
+    """The reduced system with fixed parameters' rows and columns
+    replaced by identity ones."""
+    return Sd * freef[:, None] * freef[None, :] + torch.diag(1.0 - freef)
+
+
 def lm_solve(prob: BAProblem, free_intr: tuple = (), max_iters: int = 50,
              lam0: float = 1e-3, rtol: float = 1e-8,
              robust_delta: float | None = None) -> BAResult:
@@ -158,12 +227,8 @@ def lm_solve(prob: BAProblem, free_intr: tuple = (), max_iters: int = 50,
     def resid(theta, X, intr_b, xy, w):
         return _project_resid(theta, X, intr_b, xy, w, free_intr)
 
-    def resid_pair(*args):
-        r = resid(*args)
-        return r, r
-
     obs_resid = vmap(resid)
-    obs_jac = vmap(jacfwd(resid_pair, argnums=(0, 1), has_aux=True))
+    obs_jac = _obs_jac(free_intr)
     cc_resid = vmap(_center_resid)
     cc_jac = vmap(jacfwd(_center_resid))
 
@@ -183,45 +248,27 @@ def lm_solve(prob: BAProblem, free_intr: tuple = (), max_iters: int = 50,
 
     def normal_system(theta, points):
         cam_theta, intr = unpack(theta)
-        (J_t, J_x), r_obs = obs_jac(*_grid(prob, theta[None], intr[None],
-                                           points))
-        r_obs = r_obs.reshape(p, c, 2)
-        J_t = J_t.reshape(p, c, 2, b)
-        J_x = J_x.reshape(p, c, 2, 3)
-        if robust_delta is not None:
-            rw = _huber_irls_weight(obs_sq(r_obs), robust_delta)   # (P, C)
-            r_obs = r_obs * rw[..., None]
-            J_t = J_t * rw[..., None, None]
-            J_x = J_x * rw[..., None, None]
-        U = torch.einsum("pcib,pcid->cbd", J_t, J_t)
-        V = torch.einsum("pcib,pcid->pbd", J_x, J_x)
-        W = torch.einsum("pcib,pcid->pcbd", J_t, J_x)
+        r_obs, J_t, J_x = _observation_jacobians(
+            prob, theta, intr, points, free_intr, robust_delta, obs_jac)
+        U, V, W = _blocks(J_t, J_x)
         g_c = -torch.einsum("pcib,pci->cb", J_t, r_obs)
         g_x = -torch.einsum("pcib,pci->pb", J_x, r_obs)
 
         # camera-centre priors
         r_cc = cc_resid(cam_theta, prob.cam_prior, prob.cam_prior_w)
-        J_cc = cc_jac(cam_theta, prob.cam_prior, prob.cam_prior_w)  # (C,3,6)
-        if ni:
-            J_cc = torch.cat([J_cc, J_cc.new_zeros((c, 3, ni))], 2)
+        J_cc = _center_jacobian(prob, cam_theta, ni, cc_jac)
         U = U + torch.einsum("cib,cid->cbd", J_cc, J_cc)
         g_c = g_c - torch.einsum("cib,ci->cb", J_cc, r_cc)
 
         # point priors: the Jacobian is w * I
-        eye3 = torch.eye(3, device=dev)
-        V = V + (prob.pt_prior_w[:, None] ** 2)[..., None] * eye3
+        V = V + _point_prior_information(prob)
         r_pt = (points - prob.pt_prior) * prob.pt_prior_w[:, None]
         g_x = g_x - prob.pt_prior_w[:, None] * r_pt
         return U, V, W, g_c, g_x
 
     # fixed cameras freeze their pose parameters only (their free
     # intrinsics stay adjustable): identity rows and columns, zero rhs
-    pose_fixed = prob.cam_fixed[:, None].expand(c, 6)
-    if ni:
-        pose_fixed = torch.cat(
-            [pose_fixed, torch.zeros((c, ni), dtype=torch.bool, device=dev)],
-            1)
-    freef = 1.0 - pose_fixed.reshape(-1).to(torch.float32)
+    freef = _free_params(prob, ni)
     eye_b = torch.eye(b, device=dev)
     eye3 = torch.eye(3, device=dev)
     cam = torch.arange(c, device=dev)
@@ -238,8 +285,7 @@ def lm_solve(prob: BAProblem, free_intr: tuple = (), max_iters: int = 50,
         S = -torch.einsum("pcbk,pdek->cdbe", Y, W)
         S = S.index_put((cam, cam), U, accumulate=True)
         rhs = g_c - torch.einsum("pcbk,pk->cb", Y, g_x)
-        Sd = S.permute(0, 2, 1, 3).reshape(c * b, c * b)
-        Sd = Sd * freef[:, None] * freef[None, :] + torch.diag(1.0 - freef)
+        Sd = _freeze(S.permute(0, 2, 1, 3).reshape(c * b, c * b), freef)
         d_theta = torch.linalg.solve(Sd, rhs.reshape(-1) * freef).reshape(c, b)
         d_x = torch.einsum("pjk,pk->pj", Vinv,
                            g_x - torch.einsum("pcbj,cb->pj", W, d_theta))
@@ -268,3 +314,69 @@ def lm_solve(prob: BAProblem, free_intr: tuple = (), max_iters: int = 50,
         cam_theta, intr = unpack(theta)
     return BAResult(cam_theta=cam_theta, intrinsics=intr, points=points,
                     cost=cost, initial_cost=cost0, iterations=it, lam=lam)
+
+
+def lm_solve_batched(probs: list, free_intr: tuple = (), max_iters: int = 50,
+                     lam0: float = 1e-3, rtol: float = 1e-8,
+                     robust_delta: float | None = None) -> BAResult:
+    """Solve a batch of bundle adjustments of one shape (P, C): `probs`
+    is a list of BAProblems (the JAX package stacks them on a leading
+    axis and vmaps its LM). The problems are solved one after another by
+    `lm_solve`, so each result is what `lm_solve` gives on that problem
+    alone. Returns a BAResult whose tensors are stacked on a leading
+    batch axis; `iterations` is the list of per-problem counts."""
+    outs = [lm_solve(p, free_intr=free_intr, max_iters=max_iters, lam0=lam0,
+                     rtol=rtol, robust_delta=robust_delta) for p in probs]
+    return BAResult(*([o.iterations for o in outs] if f == "iterations"
+                      else torch.stack([getattr(o, f) for o in outs])
+                      for f in BAResult._fields))
+
+
+def point_covariances(prob: BAProblem, cam_theta: torch.Tensor,
+                      intrinsics: torch.Tensor, points: torch.Tensor,
+                      free_intr: tuple = (),
+                      robust_delta: float | None = None) -> torch.Tensor:
+    """Marginal 3x3 covariance of every point at a BA solution.
+
+    Residuals are whitened by the 1/sigma weights, so J^T J is the
+    information matrix in physical units, and
+    Cov_X = V^-1 + V^-1 W^T S^-1 W V^-1, S the reduced camera system
+    (fixed cameras' poses contribute nothing). With a Huber band the
+    observations carry the IRLS weights of the solution, as in the
+    solve. The Jacobians are taken in the problem's dtype; the blocks,
+    the Schur complement and both inverses run in float64 (in float32 the
+    complement cancels: with "metashape" intrinsics, or a far scene on a
+    short baseline, the JAX package's float32 covariances are 5-10% off
+    a float64 run). Returns (P, 3, 3) in the problem's dtype.
+    """
+    free_intr = tuple(int(i) for i in free_intr)
+    c = cam_theta.shape[0]
+    ni = len(free_intr)
+    b = 6 + ni
+    dt, dev = points.dtype, points.device
+    f64 = torch.float64
+    theta = cam_theta
+    if ni:
+        theta = torch.cat([cam_theta, intrinsics[:, list(free_intr)]], 1)
+    with torch.no_grad(), full_f32_matmul():
+        _, J_t, J_x = _observation_jacobians(
+            prob, theta, intrinsics, points, free_intr, robust_delta,
+            _obs_jac(free_intr))
+        U, V, W = _blocks(J_t.to(f64), J_x.to(f64))
+        J_cc = _center_jacobian(prob, cam_theta, ni,
+                                vmap(jacfwd(_center_resid))).to(f64)
+        U = U + torch.einsum("cib,cid->cbd", J_cc, J_cc)
+        V = V + _point_prior_information(prob).to(f64) \
+            + 1e-8 * torch.eye(3, dtype=f64, device=dev)
+        Vinv = torch.linalg.inv(V)
+        Y = torch.einsum("pcbj,pjk->pcbk", W, Vinv)
+        S = -torch.einsum("pcbk,pdek->cdbe", Y, W)
+        cam = torch.arange(c, device=dev)
+        S = S.index_put((cam, cam), U, accumulate=True)
+        freef = _free_params(prob, ni).to(f64)
+        Sd = _freeze(S.permute(0, 2, 1, 3).reshape(c * b, c * b), freef)
+        cov_theta = torch.linalg.inv(Sd) * freef[:, None] * freef[None, :]
+        # W_p^T as (3, C * B) in the (camera-major, parameter-minor) order
+        G = W.permute(0, 3, 1, 2).reshape(-1, 3, c * b)
+        A = Vinv @ G                                        # (P, 3, C * B)
+        return (Vinv + A @ cov_theta @ A.mT).to(dt)

@@ -82,6 +82,19 @@ def sampson_distance(F: torch.Tensor, x0: torch.Tensor,
     return num / den.clamp_min(1e-12)
 
 
+def symmetric_epipolar_distance(F: torch.Tensor, x0: torch.Tensor,
+                                x1: torch.Tensor) -> torch.Tensor:
+    """Symmetric squared point-to-epipolar-line distance, px^2: the
+    distance of x1 to F x0 plus that of x0 to F^T x1."""
+    x0h, x1h = _homog(x0), _homog(x1)
+    Fx0 = x0h @ F.mT
+    Ftx1 = x1h @ F
+    e2 = (x1h * Fx0).sum(-1) ** 2
+    d1 = e2 / (Fx0[..., 0] ** 2 + Fx0[..., 1] ** 2).clamp_min(1e-12)
+    d0 = e2 / (Ftx1[..., 0] ** 2 + Ftx1[..., 1] ** 2).clamp_min(1e-12)
+    return d0 + d1
+
+
 def homography_dlt(x0: torch.Tensor, x1: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
     """Weighted normalised DLT -> H (..., 3, 3) with x1 ~ H x0."""
@@ -203,6 +216,61 @@ def smallest_eigenvector(M: torch.Tensor, chunk: int = EIGH_CHUNK):
     flat = M.reshape((-1,) + M.shape[-2:])
     vecs = [torch.linalg.eigh(c)[1][..., :, 0] for c in flat.split(chunk)]
     return torch.cat(vecs).reshape(M.shape[:-1])
+
+
+def _normalise_3d(X: torch.Tensor, w: torch.Tensor):
+    """Weighted similarity T (..., 4, 4) taking X (..., N, 3) to zero
+    mean and mean distance sqrt(3)."""
+    wsum = w.sum(-1).clamp_min(1e-12)[..., None]
+    mu = (X * w[..., None]).sum(-2) / wsum                      # (..., 3)
+    d = ((X - mu[..., None, :]) ** 2).sum(-1).sqrt()
+    s = math.sqrt(3.0) / ((d * w).sum(-1) / wsum[..., 0]).clamp_min(1e-12)
+    T = torch.zeros(s.shape + (4, 4), dtype=X.dtype, device=X.device)
+    for i in range(3):
+        T[..., i, i] = s
+        T[..., i, 3] = -s * mu[..., i]
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def pnp_dlt(pts3d: torch.Tensor, pts2d_n: torch.Tensor,
+            w: torch.Tensor):
+    """Weighted DLT PnP from >= 6 points, batched over leading dims.
+
+    pts3d (..., N, 3) world points, pts2d_n (..., N, 2) K-normalised
+    observations, w (..., N) row weights (w = 0 drops a row). Both point
+    sets are first normalised by weighted similarities (zero mean, mean
+    distance sqrt(3) and sqrt(2)); P = [R | t] up to scale is then the
+    smallest eigenvector of the 2N x 12 system's normal matrix, mapped
+    back through the two similarities. Its sign makes the weighted mean
+    depth positive, its scale gives the left 3x3 block the Frobenius
+    norm of a rotation, and that block is projected onto SO(3) by SVD.
+    (The JAX package solves the system on the raw coordinates: in
+    float32 at tens of metres that loses the pose, ROADMAP section 3.)
+    Returns (R (..., 3, 3), t (..., 3)) with x_cam = R X + t.
+    """
+    T3 = _normalise_3d(pts3d, w)
+    xn, T2 = hartley_normalization(pts2d_n, w)
+    X = _homog(pts3d) @ T3.mT                                  # (..., N, 4)
+    zeros = torch.zeros_like(X)
+    u, v = xn[..., 0:1], xn[..., 1:2]
+    rows_u = torch.cat([X, zeros, -u * X], -1)                 # (..., N, 12)
+    rows_v = torch.cat([zeros, X, -v * X], -1)
+    A = torch.cat([rows_u * w[..., None], rows_v * w[..., None]], -2)
+    _, V = torch.linalg.eigh(A.mT @ A)
+    P = torch.linalg.solve(T2, V[..., :, 0].reshape(V.shape[:-2] + (3, 4))
+                           @ T3)
+    depths = _homog(pts3d) @ P[..., 2, :, None]                 # (..., N, 1)
+    sgn = torch.sign((depths[..., 0] * w).sum(-1) + 1e-12)
+    P = P * sgn[..., None, None]
+    M = P[..., :3]
+    scale = math.sqrt(3.0) / torch.linalg.matrix_norm(M).clamp_min(1e-12)
+    M = M * scale[..., None, None]
+    t = P[..., 3] * scale[..., None]
+    U, _, Vh = torch.linalg.svd(M)
+    d = torch.ones(U.shape[:-1], dtype=U.dtype, device=U.device)
+    d[..., 2] = torch.linalg.det(U @ Vh)
+    return (U * d[..., None, :]) @ Vh, t
 
 
 def _cheirality_depths(R: torch.Tensor, t: torch.Tensor, x0n: torch.Tensor,

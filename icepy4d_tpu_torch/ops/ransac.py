@@ -1,6 +1,7 @@
 """Hypothesis-parallel RANSAC in plain batched PyTorch (counterpart of
 `icepy4d_tpu/ops/ransac.py`; the JAX package runs it through XLA with
-no Pallas kernel).
+no Pallas kernel): fundamental matrices (plain, DEGENSAC and MAGSAC
+scoring), homographies, the essential matrix with its pose, and PnP.
 
 Sampling is Gumbel-top-k over the validity mask (one (H, N) tensor op)
 from an explicit `torch.Generator`; the minimal solvers run batched
@@ -246,3 +247,62 @@ def ransac_essential_pose(gen, x0, x1, K0, K1, mask, threshold_px: float = 1.0,
     E, inliers = torch.stack(cand_E)[bi], torch.stack(cand_inl)[bi]
     R, t, front = epipolar.recover_pose(E, x0n, x1n, inliers.to(torch.float32))
     return R, t, E, inliers & front
+
+
+def ransac_fundamental_magsac(gen, x0, x1, mask, sigma_max: float = 2.0,
+                              n_hypotheses: int = 512, polish_iters: int = 3,
+                              guidance=None, idx=None):
+    """F-matrix RANSAC with sigma-consensus scoring (MAGSAC semantics).
+
+    A hard threshold marginalised uniformly over noise scales in
+    (0, sigma_max] gives the hypothesis quality
+    q = sum_i max(0, 1 - r_i / sigma_max) (r_i the Sampson distance in
+    px, rank-weighted with `guidance`). The best hypothesis is polished
+    by `polish_iters` rounds of the 8-point solver weighted by the same
+    per-row quality. The returned mask flags r < sigma_max.
+    Returns (F (3, 3), inlier mask (N,))."""
+    if idx is None:
+        idx = sample_minimal_sets(gen, mask, n_hypotheses, 8, guidance)
+    models = _gathered(epipolar.eight_point, x0, x1)(idx)
+    fmask = mask.to(torch.float32)
+    qw = fmask if guidance is None \
+        else (0.1 + rank_weights(mask, guidance)) * fmask
+
+    def quality(F):
+        r = epipolar.sampson_distance(F, x0, x1).clamp_min(0.0).sqrt()
+        return (1.0 - r / sigma_max).clamp_min(0.0) * qw
+
+    F = models[torch.argmax(quality(models).sum(1))]
+    for _ in range(polish_iters):
+        F = epipolar.eight_point(x0, x1, quality(F))
+    return F, (epipolar.sampson_distance(F, x0, x1) < sigma_max ** 2) & mask
+
+
+def ransac_pnp(gen, pts3d, pts2d, K, mask, threshold_px: float = 3.0,
+               n_hypotheses: int = 256, idx=None):
+    """DLT-PnP RANSAC: 6-point minimal samples, reprojection error in
+    K-normalised units against `threshold_px` over the mean focal (a
+    point behind the camera is never an inlier), then one refit on the
+    consensus. Returns (R (3, 3), t (3,), inlier mask (N,)) with
+    x_cam = R X + t."""
+    x2n = torch.stack([(pts2d[..., 0] - K[0, 2]) / K[0, 0],
+                       (pts2d[..., 1] - K[1, 2]) / K[1, 1]], -1)
+    th_n = threshold_px / ((K[0, 0] + K[1, 1]) / 2.0)
+
+    def solver(idx):
+        R, t = epipolar.pnp_dlt(pts3d[idx], x2n[idx],
+                                torch.ones(idx.shape, device=idx.device))
+        return torch.cat([R, t[..., None]], -1)                 # (H, 3, 4)
+
+    def residual(P):
+        pc = pts3d @ P[..., :3].mT + P[..., None, :, 3]
+        z = pc[..., 2]
+        z = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+        r2 = ((pc[..., :2] / z[..., None] - x2n) ** 2).sum(-1)
+        return torch.where(pc[..., 2] <= 0, float("inf"), r2)
+
+    _, inliers, _ = ransac(gen, solver, residual, mask, sample_size=6,
+                           n_hypotheses=n_hypotheses, threshold=th_n, idx=idx)
+    R, t = epipolar.pnp_dlt(pts3d, x2n, inliers.to(torch.float32))
+    P = torch.cat([R, t[:, None]], 1)
+    return R, t, (residual(P) < th_n ** 2) & mask

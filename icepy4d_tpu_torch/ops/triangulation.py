@@ -37,6 +37,34 @@ def linear_eigen_triangulation(u0, u1, P0, P1) -> torch.Tensor:
     return X[:, :3] / _safe(X[:, 3:])
 
 
+def linear_ls_triangulation(u0, u1, P0, P1) -> torch.Tensor:
+    """Inhomogeneous linear LS triangulation: the first three columns of
+    the DLT rows against minus the fourth, solved through the 3x3 normal
+    equations per point. Returns (N, 3)."""
+    S = _dlt_system_two_view(u0, u1, P0, P1)
+    A, rhs = S[..., :3], -S[..., 3]
+    AtA = A.mT @ A + 1e-12 * torch.eye(3, dtype=S.dtype, device=S.device)
+    return torch.linalg.solve(AtA, A.mT @ rhs[..., None])[..., 0]
+
+
+def triangulate_nview(us: torch.Tensor, Ps: torch.Tensor,
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
+    """N-view DLT: us (V, N, 2) observations, Ps (V, 3, 4), mask (V, N)
+    (False: the view does not see the point, its rows are zero). The
+    smallest eigenvector of each point's 4x4 normal matrix (in chunks,
+    `epipolar.EIGH_CHUNK`). Returns (N, 3)."""
+    if mask is None:
+        mask = torch.ones(us.shape[:2], dtype=torch.bool, device=us.device)
+    w = mask.to(us.dtype)[..., None]                            # (V, N, 1)
+    r0 = (us[..., 0, None] * Ps[:, None, 2] - Ps[:, None, 0]) * w
+    r1 = (us[..., 1, None] * Ps[:, None, 2] - Ps[:, None, 1]) * w
+    # rows in the JAX package's order: view 0's two rows, view 1's, ...
+    A = torch.stack([r0, r1], 1).permute(2, 0, 1, 3).reshape(
+        us.shape[1], -1, 4)                                     # (N, 2V, 4)
+    X = smallest_eigenvector(A.mT @ A)
+    return X[:, :3] / _safe(X[:, 3:])
+
+
 def iterative_ls_triangulation(u0, u1, P0, P1, iters: int = 10,
                                tolerance: float = 1.0e-4):
     """Hartley-Sturm iteratively reweighted linear LS triangulation.

@@ -1,23 +1,30 @@
-"""Multi-epoch stereo pipeline.
+"""Multi-epoch pipeline of stereo and n-camera seasons.
 
-Counterpart of the stereo path of `icepy4d_tpu/pipeline.py`. Per epoch:
-match (SuperPoint + LightGlue, SuperPoint + mutual NN, or SIFT + Lowe
-NN with the epipolar-guided rematch, each with geometric verification)
--> temporal tracking of the previous epoch's features (proc.do_tracking)
--> relative orientation -> triangulation -> reprojection and cheirality
-filter -> absolute orientation on targets -> bundle adjustment with the
-adaptive trim ladder -> recovery ladder for gated epochs -> dense
-reconstruction (proc.do_dense) -> sparse points, CSV sinks and
-checkpoint. `run()` decodes and uploads the next epoch's frames in a
-worker thread while the current epoch computes.
+Counterpart of `icepy4d_tpu/pipeline.py`. Per stereo epoch: match
+(SuperPoint + LightGlue, static or adaptive, SuperPoint + mutual NN, or
+SIFT + Lowe NN with the epipolar-guided rematch, each with geometric
+verification) -> temporal tracking of the previous epoch's features
+(proc.do_tracking) -> relative orientation -> triangulation ->
+reprojection and cheirality filter -> absolute orientation on targets ->
+space resection of each camera on its targets (proc.do_space_resection)
+-> bundle adjustment with the adaptive trim ladder -> recovery ladder
+for gated epochs -> dense reconstruction (proc.do_dense) -> sparse
+points, CSV sinks and checkpoint. With more than two cameras an epoch
+is master-centric (`_process_multicam`): the master is matched against
+every slave, the matches are merged into tracks, each slave is oriented
+against the master, and the tracks are triangulated, georeferenced and
+adjusted over the full (points x cameras) grid, after a reprojection
+filter the JAX package's n-camera path lacks. After the season,
+proc.do_homography_warping re-bases one camera's frames onto a
+reference epoch's orientation. `run()` decodes and uploads the next
+epoch's frames in a worker thread while the current epoch computes.
 
 The config is the JAX `Pipeline`'s: a dict (or a YAML path) with the
 sections paths, proc, matching, georef, ba, quality_gates, recovery,
 dense and other. Paths the port does not run yet raise
-NotImplementedError naming what they wait for: more than two cameras,
-space resection, homography warping, the superglue, loftr and semidense
-matchers, LightGlue's adaptive forward, other.do_viz, `run_batched`,
-`run_distributed`, `watch` and `warmup`.
+NotImplementedError naming what they wait for: the superglue, loftr
+and semidense matchers, `run_batched`, `run_distributed`, `watch` and
+`warmup`.
 
 Each processed epoch leaves its stage times in `self.stage_times`. The
 matcher, tracking, relative orientation, triangulation, BA and dense
@@ -51,8 +58,8 @@ from icepy4d_tpu_torch.matching import (GeometricVerification,
 from icepy4d_tpu_torch.matching.matchers import _host_gray
 from icepy4d_tpu_torch.sfm import (AbsoluteOrientation, BAConfig,
                                    BundleAdjustment, PlaneSweepStereo,
-                                   RelativeOrientation, Triangulate,
-                                   fundamental_from_cameras,
+                                   RelativeOrientation, SpaceResection,
+                                   Triangulate, fundamental_from_cameras,
                                    pose_from_known_center)
 from icepy4d_tpu_torch.sfm.geometry import project_points
 from icepy4d_tpu_torch.utils.config import DotDict, parse_cfg
@@ -66,10 +73,9 @@ MATCHERS = {
 }
 # the JAX package's other matchers, which the port does not run yet
 _UNPORTED_MATCHERS = ("superglue", "loftr", "semidense")
-_UNPORTED_FLAGS = {
-    "do_space_resection": "SpaceResection (ransac_pnp and pnp_dlt)",
-    "do_homography_warping": "the homography warping of the season",
-}
+# what space resection catches: the numerics of a singular or
+# unconverged system (a device or launch error propagates)
+_RESECTION_ERRORS = (np.linalg.LinAlgError, torch.linalg.LinAlgError)
 
 
 def _not_ported(what: str):
@@ -78,7 +84,7 @@ def _not_ported(what: str):
 
 
 class Pipeline:
-    """Config-driven stereo pipeline.
+    """Config-driven pipeline of a stereo or n-camera season.
 
         epoches = Pipeline(cfg).run()
 
@@ -95,12 +101,6 @@ class Pipeline:
         self.paths = cfg.paths
         self.results_dir = Path(cfg.paths.results_dir)
         proc = cfg.get("proc", {})
-        for key, what in _UNPORTED_FLAGS.items():
-            if bool(proc.get(key, False)):
-                raise _not_ported(f"proc.{key}: {what}")
-        if bool(cfg.get("other", {}).get("do_viz", False)):
-            raise _not_ported("other.do_viz (the match plot and the "
-                              "matched keypoints as text)")
         m_cfg = cfg.get("matching", DotDict())
         name = str(m_cfg.get("matcher", "lightglue")).lower()
         if name in _UNPORTED_MATCHERS:
@@ -115,9 +115,6 @@ class Pipeline:
         self.epoch_map = EpochDataMap(cfg.paths.image_dir,
                                       **self._epoch_map_kwargs)
         self.cams = self.epoch_map.cameras
-        if len(self.cams) > 2:
-            raise _not_ported("the multicam pipeline (more than two "
-                              "cameras; triangulate_nviews)")
         self.epoches = Epoches()
         opt = dict(m_cfg.get("options", {}) or {})
         if "max_keypoints" in m_cfg:
@@ -263,6 +260,7 @@ class Pipeline:
         prior = self._gcp_prior(epoch)
         self._epoch_prior = prior
         tile = TileSelection[str(cfg.get("tile_selection", "none")).upper()]
+        do_viz = bool(self.cfg.get("other", {}).get("do_viz", False))
         with record_function("matcher"):
             self.matcher.match(
                 im0, im1,
@@ -274,6 +272,8 @@ class Pipeline:
                 confidence=float(cfg.get("confidence", 0.9999)),
                 geometric_verification=GeometricVerification[str(cfg.get(
                     "geometric_verification", "pydegensac")).upper()],
+                do_viz_matches=do_viz,
+                save_dir=str(epoch.epoch_dir) if do_viz else None,
                 F_prior=(prior[1] if prior is not None else None))
 
         # tracking reuses the pair match's grid and overlap, so its
@@ -324,17 +324,21 @@ class Pipeline:
                     track_ids=t.track_ids_to_numpy())
         return track_s
 
+    def _reprojects(self, pts3d: np.ndarray, cam, xy: np.ndarray
+                    ) -> np.ndarray:
+        """Points that reproject within twice the RANSAC threshold of
+        their observations `xy` in `cam` and lie in front of it."""
+        err = np.linalg.norm(project_points(pts3d, cam) - xy, axis=1)
+        E = np.asarray(cam.extrinsics)
+        return (np.isfinite(err) & (err < 2.0 * self._threshold())
+                & ((pts3d @ E[2, :3] + E[2, 3]) > 0))
+
     def _reprojection_keep(self, epoch: Epoch, pts3d, kpts) -> np.ndarray:
         """Triangulated points that reproject within twice the RANSAC
         threshold into both views and lie in front of both cameras."""
-        th = 2.0 * self._threshold()
         keep = np.isfinite(pts3d).all(axis=1)
         for i, c in enumerate(self.cams):
-            err = np.linalg.norm(project_points(pts3d, epoch.cameras[c])
-                                 - kpts[i], axis=1)
-            keep &= np.isfinite(err) & (err < th)
-            E = np.asarray(epoch.cameras[c].extrinsics)
-            keep &= (pts3d @ E[2, :3] + E[2, 3]) > 0
+            keep &= self._reprojects(pts3d, epoch.cameras[c], kpts[i])
         return keep
 
     def _orient_epoch(self, epoch: Epoch) -> np.ndarray | None:
@@ -415,7 +419,45 @@ class Pipeline:
             else:
                 logger.warning("epoch %s: not enough targets for AO",
                                epoch.date_str)
+        # after AO, so the resected poses share the points' world frame
+        if bool(proc.get("do_space_resection", False)):
+            self._space_resection(epoch, centers)
         return np.asarray(pts3d)
+
+    def _space_resection(self, epoch: Epoch, centers) -> None:
+        """Each camera's world pose from its visible targets: from two or
+        more bearings when its centre is surveyed
+        (`pose_from_known_center`), else by PnP RANSAC (`SpaceResection`)
+        from six or more. A camera with fewer targets, or whose system is
+        singular, keeps its AO pose."""
+        if epoch.targets is None or epoch.targets.obj_coor is None:
+            return
+        labels = list(epoch.targets.obj_coor["label"])
+        t_world, found = epoch.targets.get_object_coor_by_label(labels)
+        for i, c in enumerate(self.cams):
+            xy, f2 = epoch.targets.get_image_coor_by_label(found, i)
+            w_sel = t_world[[found.index(lab) for lab in f2]]
+            try:
+                if len(f2) >= 2 and centers is not None:
+                    epoch.cameras[c] = pose_from_known_center(
+                        epoch.cameras[c], np.asarray(centers[i]), xy, w_sel)
+                elif len(f2) >= 6:
+                    epoch.cameras[c] = SpaceResection(
+                        epoch.cameras[c], device=self.device).estimate(
+                            xy, w_sel, reprojection_error=float(
+                                self.cfg.get("other", {}).get(
+                                    "pydegensac_threshold", 3.0)))
+                else:
+                    logger.warning("epoch %s: space resection of %s skipped "
+                                   "(%d targets visible)", epoch.date_str, c,
+                                   len(f2))
+                    continue
+                epoch.quality["stats"][f"resection_targets_{c}"] = len(f2)
+                logger.info("epoch %s: %s space-resected from %d targets",
+                            epoch.date_str, c, len(f2))
+            except _RESECTION_ERRORS as e:
+                logger.warning("epoch %s: space resection of %s failed: %s "
+                               "- keeping the AO pose", epoch.date_str, c, e)
 
     def _ba_config(self) -> BAConfig:
         ba_cfg = self.cfg.get("ba", DotDict())
@@ -541,6 +583,248 @@ class Pipeline:
         for c in self.cams:
             epoch.cameras[c] = out.cameras[c]
         return out.points
+
+    # -- n cameras --------------------------------------------------------------
+
+    def _process_multicam(self, epoch: Epoch, prev: Epoch | None):
+        """Master-centric epoch of more than two cameras: track the
+        previous epoch's features into every camera (proc.do_tracking),
+        match the master against each slave, merge the matches into
+        tracks keyed by the master keypoint (its coordinates in tenths
+        of a pixel), orient each slave against the master, triangulate
+        each track with the first slave that sees it, georeference on
+        the targets and adjust over the (P, C) observation grid, NaN
+        where a camera does not see a track. Returns (points, {cam:
+        (P, 2) grid}), or (None, None) with fewer than 8 tracks.
+
+        The master is extracted again for each slave: a match extracts
+        both frames, and the feature cache serves only the tracking of
+        the last match's pair."""
+        cfg = self.cfg.get("matching", DotDict())
+        proc = self.cfg.get("proc", DotDict())
+        g = self.cfg.get("georef", DotDict())
+        master, slaves = self.cams[0], self.cams[1:]
+        pf = self._active_prefetch or {}
+        frames = {c: pf.get(c, epoch.images[c].value) for c in self.cams}
+        quality = Quality[str(cfg.get("quality", "high")).upper()]
+        tile = TileSelection[str(cfg.get("tile_selection", "none")).upper()]
+        tiled = tile is not TileSelection.NONE
+        t = self._now()
+
+        tracked = None
+        if prev is not None and bool(proc.get("do_tracking", False)) \
+                and all(len(prev.features.get(c, [])) for c in self.cams):
+            with record_function("track"):
+                tracked = track_matches(
+                    self.matcher, {c: prev.features[c] for c in self.cams},
+                    frames,
+                    grid=tuple(cfg.get("tracking_grid", tuple(
+                        cfg.get("grid", (1, 1))) if tiled else (1, 1))),
+                    overlap=int(cfg.get("tracking_overlap", int(
+                        cfg.get("overlap", 0)) if tiled else 0)),
+                    quality=str(cfg.get("quality", "high")))
+            t = self._add_time("track_s", t)
+
+        tracks: dict[tuple, dict] = {}
+        for sl in slaves:
+            with record_function("matcher"):
+                self.matcher.match(frames[master], frames[sl],
+                                   quality=quality, tile_selection=tile,
+                                   grid=list(cfg.get("grid", [1, 1])),
+                                   overlap=int(cfg.get("overlap", 0)),
+                                   threshold=self._threshold())
+            inl = self.matcher.inlier_mask
+            epoch.quality["stats"][f"n_putative_{sl}"] = (
+                len(inl) if inl is not None else len(self.matcher.mkpts0))
+            epoch.quality["stats"][f"n_matches_{sl}"] = len(
+                self.matcher.mkpts0)
+            d_m = self.matcher.descriptors0.T
+            d_s = self.matcher.descriptors1.T
+            s_m, s_s = self.matcher.scores0, self.matcher.scores1
+            for i, (xym, xys) in enumerate(zip(self.matcher.mkpts0,
+                                               self.matcher.mkpts1)):
+                key = (round(float(xym[0]) * 10), round(float(xym[1]) * 10))
+                e = tracks.setdefault(key, {"m": xym, "md": d_m[i],
+                                            "ms": s_m[i], "obs": {}})
+                e["obs"][sl] = (xys, d_s[i], s_s[i])
+        t = self._add_time("match_s", t)
+        if len(tracks) < 8:
+            logger.warning("epoch %s: %d multicam tracks", epoch.date_str,
+                           len(tracks))
+            return None, None
+
+        track_list = list(tracks.values())
+        p = len(track_list)
+        ids = np.arange(self._next_track_id, self._next_track_id + p,
+                        dtype=np.int32)
+        self._next_track_id += p
+        dd = self.matcher.descriptor_dim
+        xy = {master: np.stack([tr["m"] for tr in track_list])}
+        descr = {master: np.stack([tr["md"] for tr in track_list])}
+        scores = {master: np.asarray([tr["ms"] for tr in track_list],
+                                     np.float32)}
+        for sl in slaves:
+            a = np.full((p, 2), np.nan, np.float32)
+            d = np.zeros((p, dd), np.float32)
+            s = np.zeros((p,), np.float32)
+            for i, tr in enumerate(track_list):
+                if sl in tr["obs"]:
+                    a[i], d[i], s[i] = tr["obs"][sl]
+            xy[sl], descr[sl], scores[sl] = a, d, s
+
+        # each slave against the master, the scale from the surveyed
+        # centres; a slave's orientation outliers leave its grid column
+        centers = g.get("camera_centers_world", None)
+        cam_m = epoch.cameras[master]
+        for si, sl in enumerate(slaves, start=1):
+            seen = np.isfinite(xy[sl]).all(axis=1)
+            if seen.sum() < 8:
+                continue
+            baseline = (float(np.linalg.norm(np.asarray(centers[0])
+                                             - np.asarray(centers[si])))
+                        if centers is not None else None)
+            rel = RelativeOrientation([cam_m, epoch.cameras[sl]],
+                                      [xy[master][seen], xy[sl][seen]],
+                                      device=self.device)
+            with record_function("ransac"):
+                valid = np.asarray(rel.estimate_pose(
+                    threshold=self._threshold(), scale_factor=baseline),
+                    bool)
+            epoch.cameras[sl] = rel.cameras[1]
+            epoch.quality["stats"][f"n_orientation_inliers_{sl}"] = int(
+                valid.sum())
+            xy[sl][np.where(seen)[0][~valid]] = np.nan
+
+        pts3d = np.full((p, 3), np.nan, np.float32)
+        for sl in slaves:
+            todo = np.isnan(pts3d[:, 0]) & np.isfinite(xy[sl]).all(axis=1)
+            if todo.sum() < 2:
+                continue
+            with record_function("triangulation"):
+                pts3d[todo] = Triangulate(
+                    [cam_m, epoch.cameras[sl]],
+                    [xy[master][todo], xy[sl][todo]],
+                    device=self.device).triangulate_two_views()
+        self._multicam_reprojection_filter(epoch, pts3d, xy)
+        # tracks that never triangulated leave: zeros would feed origin
+        # points with real master observations into the BA and the sinks
+        ok = np.isfinite(pts3d).all(axis=1)
+        if not ok.all():
+            logger.info("multicam: dropping %d / %d untriangulated tracks",
+                        int((~ok).sum()), p)
+        pts3d, ids = pts3d[ok], ids[ok]
+        for c in self.cams:
+            xy[c], descr[c], scores[c] = xy[c][ok], descr[c][ok], \
+                scores[c][ok]
+        p = int(ok.sum())
+        epoch.quality["stats"]["n_tracks"] = p
+        if p < 8:
+            logger.warning("epoch %s: %d triangulated multicam tracks",
+                           epoch.date_str, p)
+            epoch.flag("few_inliers", "failed", n_tracks=p)
+            return None, None
+
+        if epoch.targets is not None and centers is not None:
+            labels = list(g.get("targets_to_use", []))
+            t_world, found = epoch.targets.get_object_coor_by_label(labels)
+            t_im, all_found = [], len(found) >= 2
+            for i, c in enumerate(self.cams):
+                txy, f2 = epoch.targets.get_image_coor_by_label(found, i)
+                all_found &= len(f2) == len(found)
+                t_im.append(txy)
+            if all_found:
+                abso = AbsoluteOrientation(
+                    tuple(epoch.cameras[c] for c in self.cams),
+                    points3d_final=t_world, image_points=tuple(t_im[:2]),
+                    camera_centers_world=tuple(np.asarray(cc)
+                                               for cc in centers),
+                    device=self.device)
+                abso.estimate_transformation_linear(estimate_scale=True)
+                pts3d = abso.apply_transformation(points3d=pts3d)
+                for i, c in enumerate(self.cams):
+                    epoch.cameras[c] = abso.cameras[i]
+        t = self._add_time("orient_s", t)
+
+        # the BA over the (P, C) grid takes three keys of the ba block,
+        # as in the JAX package
+        if bool(proc.get("do_ba", True)):
+            ba_cfg = self.cfg.get("ba", DotDict())
+            out = self._solve(
+                {c: epoch.cameras[c] for c in self.cams}, xy,
+                np.asarray(pts3d, np.float32),
+                camera_centers=({c: np.asarray(centers[i])
+                                 for i, c in enumerate(self.cams)}
+                                if centers is not None else {}),
+                cfg=BAConfig(
+                    camera_center_sigma_m=float(ba_cfg.get(
+                        "camera_location_accuracy", 0.5)),
+                    fit_f=bool(ba_cfg.get("fit_f", False)),
+                    max_iters=int(ba_cfg.get("max_iters", 60))))
+            if out.ok:
+                epoch.quality["stats"]["ba_rmse_px"] = \
+                    out.reprojection_rmse_px
+                for c in self.cams:
+                    epoch.cameras[c] = out.cameras[c]
+                pts3d = out.points
+            else:
+                logger.warning("epoch %s BA refused: %s - keeping pre-BA "
+                               "cameras", epoch.date_str, out.failure)
+                epoch.flag("ba_failed", "degraded", ba_failure=out.failure)
+            t = self._add_time("ba_s", t)
+
+        # per-camera features (the master: every track; a slave: those it
+        # sees), with descriptors and scores to seed the next tracking
+        for c in self.cams:
+            seen = np.isfinite(xy[c]).all(axis=1)
+            feats = Features(descr_dim=dd)
+            feats.append_features_from_numpy(
+                xy[c][seen], descr=descr[c][seen], scores=scores[c][seen],
+                track_ids=ids[seen])
+            if tracked is not None and len(tracked[c]):
+                tr = tracked[c]
+                feats.append_features_from_numpy(
+                    tr.kpts_to_numpy(), descr=tr.descr_to_numpy(),
+                    scores=tr.scores_to_numpy(),
+                    track_ids=tr.track_ids_to_numpy())
+            epoch.features[c] = feats
+        return pts3d, xy
+
+    def _multicam_reprojection_filter(self, epoch: Epoch, pts3d: np.ndarray,
+                                      xy: dict) -> None:
+        """Drop, in place, the observations of the triangulated tracks that
+        do not reproject within twice the RANSAC threshold or lie behind
+        their camera: a slave's leaves its grid column, a master's failure
+        drops the track, and so does a track no slave sees any more.
+
+        The JAX package has no such filter on its n-camera path (its
+        stereo path has `_reprojection_keep`): a slave's mismatch that
+        lies along its epipolar line passes the slave's orientation test,
+        and on full-size frames such observations, hundreds of pixels off
+        the track's point, reach its BA, which has no robust loss, and
+        collapse the rig (ROADMAP section 3)."""
+        tri = np.isfinite(pts3d).all(axis=1)
+        n_before = {c: int((tri & np.isfinite(xy[c]).all(axis=1)).sum())
+                    for c in self.cams}
+        for c in self.cams:
+            seen = tri & np.isfinite(xy[c]).all(axis=1)
+            bad = np.zeros_like(seen)
+            bad[seen] = ~self._reprojects(pts3d[seen], epoch.cameras[c],
+                                          xy[c][seen])
+            if c == self.cams[0]:
+                pts3d[bad] = np.nan
+                tri &= ~bad
+            else:
+                xy[c][bad] = np.nan
+        multi = np.logical_or.reduce([np.isfinite(xy[sl]).all(axis=1)
+                                      for sl in self.cams[1:]])
+        pts3d[~multi] = np.nan
+        dropped = {c: n_before[c] - int((np.isfinite(pts3d).all(axis=1)
+                                         & np.isfinite(xy[c]).all(axis=1))
+                                        .sum()) for c in self.cams}
+        epoch.quality["stats"]["n_reprojection_dropped"] = dropped
+        if any(dropped.values()):
+            logger.info("multicam reprojection filter dropped %s "
+                        "observations", dropped)
 
     # -- recovery ladder --------------------------------------------------------
 
@@ -699,7 +983,7 @@ class Pipeline:
     # -- dense -------------------------------------------------------------------
 
     def _dense_epoch(self, epoch: Epoch, pts3d: np.ndarray) -> None:
-        """Dense cloud of the epoch's pair: PlaneSweepStereo at the
+        """Dense cloud of the epoch's first two cameras: PlaneSweepStereo at the
         `dense` block's settings over a depth range from the sparse
         cloud's 2nd and 98th distance percentiles, optional SOR, and
         `dense_<date>.ply` in the epoch's directory."""
@@ -708,9 +992,10 @@ class Pipeline:
         d = np.linalg.norm(pts3d - np.asarray(cam0.C).reshape(1, 3), axis=1)
         d_lo = float(np.percentile(d, 2) * float(dn.get("near_margin", 0.7)))
         d_hi = float(np.percentile(d, 98) * float(dn.get("far_margin", 1.5)))
+        pair = self.cams[:2]
         pss = PlaneSweepStereo(
-            [epoch.cameras[c] for c in self.cams],
-            [epoch.images[c].value for c in self.cams],
+            [epoch.cameras[c] for c in pair],
+            [epoch.images[c].value for c in pair],
             depth_min=d_lo, depth_max=d_hi,
             n_planes=int(dn.get("n_planes", 128)),
             window=int(dn.get("window", 7)),
@@ -741,8 +1026,11 @@ class Pipeline:
                 self._next_track_id = max(self._next_track_id,
                                           int(ids.max()) + 1)
 
-    def _finalize_epoch(self, epoch: Epoch, pts3d) -> None:
-        """Points, CSV sinks and checkpoint."""
+    def _finalize_epoch(self, epoch: Epoch, pts3d,
+                        image_points: dict | None = None) -> None:
+        """Points, CSV sinks and checkpoint. image_points: {cam: (P, 2)}
+        NaN-padded observations aligned with pts3d (the multicam grid);
+        by default each camera's features."""
         proc = self.cfg.get("proc", DotDict())
         if pts3d is not None:
             pts_obj = Points()
@@ -750,8 +1038,10 @@ class Pipeline:
                 pts3d, track_ids=epoch.features[
                     self.cams[0]].track_ids_to_numpy()[:len(pts3d)])
             epoch.points = pts_obj
-            image_points = {c: epoch.features[c].kpts_to_numpy()[:len(pts3d)]
-                            for c in self.cams}
+            if image_points is None:
+                image_points = {
+                    c: epoch.features[c].kpts_to_numpy()[:len(pts3d)]
+                    for c in self.cams}
             cameras = {c: epoch.cameras[c] for c in self.cams}
             write_reprojection_error_to_file(
                 self.results_dir / "residuals_image.csv", epoch.date_str,
@@ -783,26 +1073,31 @@ class Pipeline:
         for k in [k for k in list(self._prefetched) if k <= ep]:
             self._prefetched.pop(k, None)
         t = self._add_time("decode_s", t)
-        track_s = self._match_epoch(epoch, prev)
-        t = self._add_time("match_s", t)
-        if bool(proc.get("do_tracking", False)):
-            self._stage["match_s"] -= track_s
-            self._stage["track_s"] = track_s
-        pts3d = self._orient_epoch(epoch)
-        t = self._add_time("orient_s", t)
-        if pts3d is not None and bool(proc.get("do_ba", True)):
-            pts3d = self._bundle_epoch(epoch, pts3d)
-        t = self._add_time("ba_s", t)
-        if bool(proc.get("do_recovery", True)) and self._needs_recovery(
-                epoch):
-            epoch, pts3d = self._recover_epoch(ep, epoch, pts3d, prev)
-            t = self._add_time("recovery_s", t)
+        image_points = None
+        if len(self.cams) > 2:
+            pts3d, image_points = self._process_multicam(epoch, prev)
+            t = self._now()
+        else:
+            track_s = self._match_epoch(epoch, prev)
+            t = self._add_time("match_s", t)
+            if bool(proc.get("do_tracking", False)):
+                self._stage["match_s"] -= track_s
+                self._stage["track_s"] = track_s
+            pts3d = self._orient_epoch(epoch)
+            t = self._add_time("orient_s", t)
+            if pts3d is not None and bool(proc.get("do_ba", True)):
+                pts3d = self._bundle_epoch(epoch, pts3d)
+            t = self._add_time("ba_s", t)
+            if bool(proc.get("do_recovery", True)) and self._needs_recovery(
+                    epoch):
+                epoch, pts3d = self._recover_epoch(ep, epoch, pts3d, prev)
+                t = self._add_time("recovery_s", t)
         self._active_prefetch = None
         if pts3d is not None and len(pts3d) > 10 \
                 and bool(proc.get("do_dense", False)):
             self._dense_epoch(epoch, pts3d)
             t = self._add_time("dense_s", t)
-        self._finalize_epoch(epoch, pts3d)
+        self._finalize_epoch(epoch, pts3d, image_points)
         self._add_time("finalize_s", t)
         self.stage_times[ep] = dict(self._stage)
         return epoch
@@ -832,7 +1127,41 @@ class Pipeline:
             self._prefetched.clear()
             self._active_prefetch = None
         self.summarize_quality()
+        if bool(proc.get("do_homography_warping", False)):
+            self._homography_warping()
         return self.epoches
+
+    def _homography_warping(self) -> None:
+        """Warp proc.camera_to_warp's frame of every epoch (default: the
+        last camera) onto the reference epoch's orientation, with the
+        rotations median-smoothed over proc.warping_smooth_window epochs;
+        JPGs land in results_dir/warped. The reference epoch is
+        proc.warping_reference_day (a date such as "2022_07_28") or
+        proc.warping_reference_epoch (an index, default 0)."""
+        from icepy4d_tpu_torch.utils.homography import homography_warping
+
+        proc = self.cfg.get("proc", DotDict())
+        cam = proc.get("camera_to_warp", None) or self.cams[-1]
+        if cam not in self.cams:
+            logger.warning("camera_to_warp %r unknown (cams: %s) - skipping "
+                           "warping", cam, self.cams)
+            return
+        ref = int(proc.get("warping_reference_epoch", 0))
+        day = proc.get("warping_reference_day", None)
+        if day is not None:
+            want = str(day).replace("_", "-").replace(":", "-")[:10]
+            rid = next((eid for eid in sorted(self.epoches._epochs)
+                        if self.epoches[eid].date_str[:10] == want), None)
+            if rid is None:
+                logger.warning("warping_reference_day %s not in the season - "
+                               "using epoch %d", day, ref)
+            else:
+                ref = rid
+        logger.info("homography warping of %s onto epoch %d", cam, ref)
+        homography_warping(
+            self.epoches, cam, reference_epoch=ref,
+            smooth_window=int(proc.get("warping_smooth_window", 2)),
+            out_dir=self.results_dir / "warped", device=self.device)
 
     def summarize_quality(self) -> dict:
         """Per-status epoch counts and the flagged epochs by name."""

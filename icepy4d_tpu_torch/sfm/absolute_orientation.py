@@ -6,7 +6,8 @@ maps the photogrammetric model onto surveyed world coordinates (the
 host float64 Umeyama solve, optionally refined by Gauss-Newton), with
 the camera centres as extra correspondences, and re-bases points and
 cameras on it; `pose_from_known_center` orients a camera whose centre
-is surveyed from two or more target bearings. Everything runs on the
+is surveyed from two or more target bearings; `SpaceResection` resects
+one camera by DLT-PnP RANSAC on the device. Everything else runs on the
 host in float64 around centroid-relative coordinates: surveyed
 coordinates are UTM-scale, where float32 keeps about half a metre.
 """
@@ -19,18 +20,65 @@ import numpy as np
 import torch
 
 from icepy4d_tpu_torch.core.camera import Camera
+from icepy4d_tpu_torch.device import full_f32_matmul, resolve_device
 from icepy4d_tpu_torch.ops import geometry_np as geom_np
 from icepy4d_tpu_torch.ops import transforms as tf
+from icepy4d_tpu_torch.ops.buckets import pad_bucket
+from icepy4d_tpu_torch.ops.ransac import ransac_pnp
 
 logger = logging.getLogger("icepy4d_tpu_torch")
 
 
 class SpaceResection:
-    """Single-camera PnP resection: not ported yet."""
+    """Single-camera pose from 3D-2D correspondences: DLT-PnP RANSAC
+    (`ops.ransac.ransac_pnp`) on the undistorted observations.
+    device: None runs on the card (and raises without one). After
+    `estimate`, `inliers` holds the consensus as an (n,) bool array over
+    the given points."""
 
-    def __init__(self, camera: Camera) -> None:
-        raise NotImplementedError(
-            "SpaceResection waits for the port of ransac_pnp and pnp_dlt")
+    def __init__(self, camera: Camera, device=None) -> None:
+        self.camera = camera
+        self.device = resolve_device(device)
+        self.inliers: np.ndarray | None = None
+
+    def estimate(self, image_points: np.ndarray, object_points: np.ndarray,
+                 reprojection_error: float = 3.0, seed: int = 0) -> Camera:
+        """The camera with the resected pose; unchanged (with a warning)
+        when fewer than 4 points are inliers. The object points are
+        re-centred on their centroid in float64 (surveyed coordinates are
+        UTM-scale) and the translation is moved back after the solve.
+        Points are padded to the JAX package's bucket (at least 8 rows)
+        and masked, so both draw their samples over one shape."""
+        p2 = np.asarray(image_points, np.float32).reshape(-1, 2)
+        p3 = np.asarray(object_points, np.float64).reshape(-1, 3)
+        n = p2.shape[0]
+        shift = p3.mean(axis=0) if n else np.zeros(3)
+        cap = pad_bucket(n, floor=8)
+        pts2d = np.zeros((cap, 2), np.float32)
+        pts3d = np.zeros((cap, 3), np.float32)
+        pts2d[:n] = self.camera.undistort_points(p2)
+        pts3d[:n] = p3 - shift
+        dev = self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with torch.no_grad(), full_f32_matmul():
+            R, t, inliers = ransac_pnp(
+                gen, torch.from_numpy(pts3d).to(dev),
+                torch.from_numpy(pts2d).to(dev),
+                torch.as_tensor(np.asarray(self.camera.K, np.float32),
+                                device=dev),
+                torch.arange(cap, device=dev) < n,
+                threshold_px=float(reprojection_error))
+        self.inliers = inliers[:n].cpu().numpy()
+        n_inl = int(self.inliers.sum())
+        if n_inl < 4:
+            logger.warning("Space resection failed: %d inliers", n_inl)
+            return self.camera
+        logger.info("Space resection succeeded. Inliers: %d/%d", n_inl, cap)
+        R = R.cpu().numpy().astype(np.float64)
+        t = t.cpu().numpy().astype(np.float64) - R @ shift
+        self.camera = self.camera.update_extrinsics(
+            Camera.Rt_to_extrinsics(R, t))
+        return self.camera
 
 
 class AbsoluteOrientation:

@@ -6,7 +6,8 @@ markers (targets) and camera-centre priors, solves it with the Schur LM
 of `ops/ba.py` on the device, and returns refined cameras and points.
 Weights follow Metashape's accuracy settings (tie-point projection
 sigma 1 px, marker projection 0.5 px, marker location 0.01 m, camera
-centre per config). The problem is re-centred on the scene centroid for
+centre per config). With `compute_covariance` the output carries each
+tie point's 3x3 covariance. The problem is re-centred on the scene centroid for
 float32 conditioning, and the RMSE is taken in that frame. The JAX
 package pads the point count to a bucket with zero-weight rows; here
 the problem has its exact size.
@@ -21,7 +22,7 @@ import numpy as np
 from icepy4d_tpu_torch.core.camera import Camera
 from icepy4d_tpu_torch.device import resolve_device
 from icepy4d_tpu_torch.ops import geometry_np as geom_np
-from icepy4d_tpu_torch.ops.ba import BAProblem, lm_solve
+from icepy4d_tpu_torch.ops.ba import BAProblem, lm_solve, point_covariances
 
 
 @dataclass
@@ -34,7 +35,7 @@ class BAConfig:
     free_intrinsics: tuple = ()  # indices into [fx, fy, cx, cy, dist8]
     fit_f: bool = False          # shortcut: free (fx, fy)
     robust_delta: float | None = None  # Huber band (sigma); None = LS
-    compute_covariance: bool = False   # not ported yet
+    compute_covariance: bool = False   # point covariances of the solution
     max_iters: int = 100
     min_points: int = 10         # tie points seen by >= 2 cameras
 
@@ -86,9 +87,6 @@ class BundleAdjustment:
                  camera_centers: dict | None = None,
                  cfg: BAConfig | None = None, device=None):
         self.cfg = cfg or BAConfig()
-        if self.cfg.compute_covariance:
-            raise NotImplementedError(
-                "point covariances wait for the port of point_covariances")
         self.device = resolve_device(device)
         self.cam_names = list(cameras.keys())
         self.cameras = cameras
@@ -185,8 +183,8 @@ class BundleAdjustment:
                                 f"(min_points={cfg.min_points})")
 
         leaves, shift, n_tie = self._assemble_numpy()
-        res = lm_solve(BAProblem.from_numpy(self.device, **leaves),
-                       free_intr=free_intr, max_iters=cfg.max_iters,
+        prob = BAProblem.from_numpy(self.device, **leaves)
+        res = lm_solve(prob, free_intr=free_intr, max_iters=cfg.max_iters,
                        robust_delta=cfg.robust_delta)
         cam_theta = res.cam_theta.cpu().numpy()
         intr = res.intrinsics.cpu().numpy()
@@ -228,7 +226,14 @@ class BundleAdjustment:
                 and np.isfinite(intr).all() and np.isfinite(pts).all()):
             return self._failed(f"non-finite solution after "
                                 f"{int(res.iterations)} iters (rmse={rmse})")
+        covs = None
+        if cfg.compute_covariance:
+            # translation-invariant: the re-centred frame serves
+            covs = point_covariances(
+                prob, res.cam_theta, res.intrinsics, res.points,
+                free_intr=free_intr, robust_delta=cfg.robust_delta)
+            covs = covs[:n_tie].cpu().numpy()
         return BAOutput(cameras=cameras, points=pts, cost=float(res.cost),
                         initial_cost=float(res.initial_cost),
                         iterations=int(res.iterations),
-                        reprojection_rmse_px=rmse)
+                        reprojection_rmse_px=rmse, point_covariances=covs)

@@ -1,9 +1,10 @@
-"""Two-view triangulation.
+"""Two-view and n-view triangulation.
 
 Counterpart of `icepy4d_tpu/sfm/triangulation.py::Triangulate`: both
 observation sets are undistorted (keeping K) and triangulated by the
 iterative linear LS solver in one device step, all points at once;
-colours are a batched bilinear gather. Products run in full float32
+colours are a batched bilinear gather. `triangulate_nviews` is the
+n-view DLT of every camera's observations. Products run in full float32
 (TF32 off) whatever the caller set. The JAX package pads the points
 to a bucket; here they run at their exact count.
 """
@@ -82,8 +83,15 @@ class Triangulate:
         return self.points3d
 
     def triangulate_nviews(self) -> np.ndarray:
-        raise NotImplementedError(
-            "n-view triangulation waits for the multicam slice of the port")
+        """N-view DLT over every camera's observations, as they are (no
+        undistortion, as in the JAX package). Returns (N, 3)."""
+        us = torch.stack([self._t(p)[..., :2].reshape(-1, 2)
+                          for p in self.image_points])
+        Ps = torch.stack([self._t(cam.P) for cam in self.cameras])
+        with torch.no_grad(), full_f32_matmul():
+            pts = tri.triangulate_nview(us, Ps)
+        self.points3d = pts.cpu().numpy()
+        return self.points3d
 
     def interpolate_colors_from_image(self, image: np.ndarray,
                                       camera: Camera,

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """CPU rehearsal of `chip_smoke.py`'s season phases (7: LightGlue with
-tracking and dense; 8: the SIFT season) at a reduced frame size.
+tracking and dense; 8: the SIFT season; 10: the adaptive matcher; 11:
+the n-camera season; 12: PnP, MAGSAC and the stereo season with space
+resection and the match writer) at a reduced frame size.
 
-    python3 scripts/rehearse_seasons_cpu.py [--phase 7|8|both]
+    python3 scripts/rehearse_seasons_cpu.py [--phase 7|8|10|11|12|both|all]
 
-Runs every stage of both phases on the CPU on 1000x1504 frames (f = 1500
-px, 5 m baseline, 1024 keypoints a tile), in a few minutes. Launches are
+Runs every stage of the phases on the CPU on 1000x1504 frames (f = 1500
+px, 5 m baseline, 1024 keypoints a tile), in a few minutes ("both" is
+phases 7 and 8, "all" every one). Launches are
 counted on the kernels' plain versions (the CPU runs no kernel). The
 gates, set from full-size card runs, are checked and a gate that fails
 is printed, not raised: at this size the tie-point and rotation gates
@@ -29,7 +32,8 @@ sys.path.insert(0, str(REPO / "tests"))
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("7", "8", "both"), default="both")
+    ap.add_argument("--phase", choices=("7", "8", "10", "11", "12", "both",
+                                        "all"), default="both")
     args = ap.parse_args()
 
     torch.cuda.synchronize = lambda *a, **k: None
@@ -58,6 +62,8 @@ def main() -> None:
     counted(superpoint, "fused_nms_border", "nms")
     counted(attention, "attention_plain", "attention")
     counted(dense, "disparity_sweep_plain", "sweep")
+    # the kernel's own entry, which phase 10 calls on captured operands
+    attention.flash_attention = attention.attention_plain
 
     def reset():
         for k in counts:
@@ -67,18 +73,46 @@ def main() -> None:
         return dict(counts)
 
     dev = torch.device("cpu")
+    want = {"both": ("7", "8"), "all": ("7", "8", "10", "11", "12")}.get(
+        args.phase, (args.phase,))
     with tempfile.TemporaryDirectory() as tmp:
         scene, cfg = cs.season_config(dev, tmp, n_epochs=3)
         # one extraction chunk an image at this size; one pair chunk
         first = {"nms": 2, "attention": 36, "sweep": 2}
         tracked = dict(first, attention=72)
+        # three cameras: two matches an epoch; a tracked epoch extracts
+        # the three frames and seeds one forward of 12 tile pairs
+        first3 = {"nms": 4, "attention": 72, "sweep": 0}
+        tracked3 = {"nms": 7, "attention": 108, "sweep": 0}
         phases = []
-        if args.phase in ("7", "both"):
+        if "7" in want:
             phases.append(("7", lambda: cs.season_path(
                 dev, reset, read, scene, cfg, [first, tracked, tracked])))
-        if args.phase in ("8", "both"):
+        if "8" in want:
             phases.append(("8", lambda: cs.sift_season_path(
                 dev, reset, read, scene, cfg)))
+        if "10" in want:
+            from icepy4d_tpu_torch.matching import (GeometricVerification,
+                                                    Quality, TileSelection)
+            img0, img1 = cs.shifted_pair()
+            call = dict(quality=Quality.HIGH,
+                        tile_selection=TileSelection.EXHAUSTIVE,
+                        grid=[2, 2], overlap=50, threshold=1.0,
+                        geometric_verification=GeometricVerification.PYDEGENSAC)
+            phases.append(("10", lambda: cs.adaptive_path(
+                dev, reset, read, img0, img1, call, 2, 0.0,
+                max_keypoints=cs.SEASON_KEYPOINTS)))
+        if "11" in want:
+            def multicam():
+                scene3, cfg3 = cs.multicam_config(dev, Path(tmp) / "mc",
+                                                  n_epochs=3)
+                return cs.multicam_path(dev, reset, read, scene3, cfg3,
+                                        [first3, tracked3, tracked3])
+            phases.append(("11", multicam))
+        if "12" in want:
+            phases.append(("12", lambda: (
+                cs.pnp_check(dev),
+                cs.resection_season_path(cfg, n_epochs=2))))
         for name, run in phases:
             t0 = time.perf_counter()
             try:

@@ -231,3 +231,50 @@ def test_kernel_masked_tiles_and_head_views(cuda, mode, strided, dtype):
     """nk = 1024: the middle mask blanks tiles 2 to 5 whole, the prefix
     mask leaves whole tiles of padding at the end."""
     _check_kernel(cuda, 3, 4, 256, 1024, mode, strided, dtype)
+
+
+ADAPTIVE_CAPS = (64, 128, 256, 512, 1024, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", ADAPTIVE_CAPS)
+@pytest.mark.parametrize("nq", ADAPTIVE_CAPS)
+def test_kernel_adaptive_capacities(cuda, nq, nk):
+    """The adaptive LightGlue's packed capacities (powers of two from 64,
+    Nq != Nk included), head views as the blocks pass them, a padding
+    mask behind each row's kept tokens: at Nk = 64 a partial 128-key
+    tile, at Nq = 64 one of the two consumer warpgroups without rows."""
+    _check_kernel(cuda, 4, 4, nq, nk, "prefix", strided=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nk", [(512, 64), (512, 128), (2048, 64),
+                                   (2048, 128)])
+def test_kernel_as_far_from_f32_as_plain_bf16(cuda, nq, nk):
+    """The inputs of chip_smoke.py's phase 3 at the four adaptive shapes
+    where the kernel departs from plain bf16 by more than 2e-3 of the
+    largest output (3.1e-3 at Nq = 512, Nk = 64 on an H100): the two
+    bf16 versions sum q.k in other orders, so a probability on a bf16
+    rounding boundary rounds apart in them, by 2^-8 of itself, and a row
+    of a few valid keys moves by up to 3e-3. Neither is the nearer one:
+    both lie as far from plain f32, within 1e-4 of the largest output,
+    and that is the rule phase 3 holds these shapes to."""
+    b, h = 16, 4
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((b, h, n, 64), generator=g, device=cuda)
+               for n in (nq, nk, nk))
+    g = torch.Generator(device=cuda).manual_seed(nk)
+    n_valid = torch.randint(1, nk + 1, (b, 1), generator=g, device=cuda)
+    mask = torch.arange(nk, device=cuda)[None] < n_valid
+    mask[-1] = False
+    q, k, v = _head_views(q, k, v)
+    got = attention.masked_attention(q, k, v, mask)[:-1]
+    bf16 = attention.attention_plain(q, k, v, mask,
+                                     operand_dtype=torch.bfloat16)[:-1]
+    f32 = attention.attention_plain(q, k, v, mask)[:-1]
+    scale = bf16.abs().max().item()
+    to32 = (got - f32).abs().max().item() / scale
+    plain_to32 = (bf16 - f32).abs().max().item() / scale
+    assert abs(to32 - plain_to32) <= 1e-4, (to32, plain_to32)
+    # and neither bf16 version strays from f32 by more than a few 2^-8
+    assert plain_to32 <= 3 * 2.0 ** -8, plain_to32

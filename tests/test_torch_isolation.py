@@ -116,3 +116,38 @@ def test_geometry_entry_points_raise_without_cuda(no_cuda):
                                              "results_dir": "res"}})):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+def test_slice_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """The n-camera Pipeline, space resection, the covariance BA, the
+    adaptive matcher and the warping run on the card by default and
+    raise without one."""
+    import cv2
+
+    from icepy4d_tpu_torch.core import Camera
+    from icepy4d_tpu_torch.matching import LightGlueMatcher
+    from icepy4d_tpu_torch.pipeline import Pipeline
+    from icepy4d_tpu_torch.sfm import (BAConfig, BundleAdjustment,
+                                       SpaceResection)
+    from icepy4d_tpu_torch.utils.homography import warp_image_to_reference
+
+    img = np.zeros((16, 16), np.uint8)
+    for cam in ("cam1", "cam2", "cam3"):
+        (tmp_path / "img" / cam).mkdir(parents=True)
+        cv2.imwrite(str(tmp_path / "img" / cam / "IMG_0.png"), img)
+    cfg = {"paths": {"image_dir": str(tmp_path / "img"),
+                     "results_dir": str(tmp_path / "res")},
+           "proc": {"do_space_resection": True,
+                    "do_homography_warping": True,
+                    "use_mtime_fallback": True},
+           "other": {"do_viz": True}}
+    cam = Camera.create(width=16, height=16, K=np.eye(3))
+    for make in (lambda: Pipeline(cfg),
+                 lambda: SpaceResection(cam),
+                 lambda: BundleAdjustment(
+                     {}, {}, np.zeros((0, 3)),
+                     cfg=BAConfig(compute_covariance=True)),
+                 lambda: LightGlueMatcher({"adaptive": True}),
+                 lambda: warp_image_to_reference(img, cam, cam)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()

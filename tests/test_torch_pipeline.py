@@ -147,27 +147,6 @@ def test_sabotaged_epoch_is_recovered_alike(season):
     _agree(eps, jeps)
 
 
-def _unported(cfg, key):
-    """Set one path the port does not run yet."""
-    if key == "other.do_viz":
-        cfg["other"] = dict(cfg["other"], do_viz=True)
-    elif key == "matching.options.adaptive":
-        cfg["matching"] = dict(cfg["matching"], options=dict(
-            cfg["matching"]["options"], adaptive=True))
-    else:
-        cfg["proc"][key] = True
-    return cfg
-
-
-@pytest.mark.parametrize("key", ["other.do_viz",
-                                 "matching.options.adaptive",
-                                 "do_space_resection",
-                                 "do_homography_warping"])
-def test_unported_paths_raise(season, key):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Pipeline(_unported(_cfg(season, "unported"), key), device="cpu")
-
-
 def test_unported_entry_points_raise(season):
     cfg = _cfg(season, "unported")
     cfg["matching"] = dict(cfg["matching"], matcher="semidense")

@@ -232,8 +232,9 @@ class StereoSeason:
     """A synthetic stereo season of a layered, textured scene.
 
     Two parallel cameras with focal f (px) stand `baseline` m apart
-    along X and look along +Y at three textured faces in a frame with Z
-    up: a rock wall at SEASON_DEPTH (stable ground, it carries the
+    along X (with `n_cameras=3`, a third stands `baseline` m beyond the
+    first, on the side away from the second) and look along +Y at three
+    textured faces in a frame with Z up: a rock wall at SEASON_DEPTH (stable ground, it carries the
     targets), a glacier tongue at about 0.9 x that depth that flows
     sideways by SEASON_FLOW_PX pixels an epoch, and two boulders at
     about 0.8 x that depth.
@@ -256,7 +257,7 @@ class StereoSeason:
     LABELS = ("T1", "T2", "T3", "T4", "T5")
 
     def __init__(self, h: int, w: int, f: float, baseline: float = 10.0,
-                 cell_px: float = 10.0, device="cpu"):
+                 cell_px: float = 10.0, device="cpu", n_cameras: int = 2):
         import torch
 
         self.h, self.w, self.f = h, w, f
@@ -265,8 +266,12 @@ class StereoSeason:
         self.device = torch.device(device)
         self.K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]],
                           np.float32)
+        # the third camera's baseline to the first (the master of an
+        # n-camera season) is the pair's: its disparities are the same
+        # whole 8-px cells
         self.centers = np.array([[-baseline / 2, 0.0, 0.0],
-                                 [baseline / 2, 0.0, 0.0]])
+                                 [baseline / 2, 0.0, 0.0],
+                                 [-1.5 * baseline, 0.0, 0.0]])[:n_cameras]
         self.R = [_look_at(C, C + [0.0, depth, 0.0]) for C in self.centers]
         # faces, far to near, at disparities of whole 8-px cells
         fb = f * baseline
@@ -368,11 +373,14 @@ class StereoSeason:
         wall and one on each boulder (both stable; two depths keep the
         focal length apart from the distance), and each camera's (n, 2)
         pixel coordinates of them; each is checked to be in view and
-        unoccluded in both frames."""
+        unoccluded in every frame."""
         import torch
 
         d = self.depth
-        X = np.array([-0.35, 0.4, -0.05, -0.2, 0.25]) * d
+        # three cameras span a wider base: the wall's targets move
+        # inwards to stay in every view
+        X = np.array([-0.35, 0.4, -0.05, -0.2, 0.25] if len(self.centers) < 3
+                     else [-0.3, 0.3, -0.05, -0.2, 0.25]) * d
         Z = np.array([0.3, -0.3, 0.3, -0.12, 0.15]) * d
         k = np.array([0, 0, 0, 2, 2])
         Y = np.array(self.layers)[k]
@@ -415,7 +423,8 @@ class StereoSeason:
             wr.writerow(["label", "X", "Y", "Z"])
             wr.writerows([[lab, *(repr(float(v)) for v in p)]
                           for lab, p in zip(self.LABELS, P)])
-        for i, cam in enumerate(("cam1", "cam2")):
+        for i in range(len(self.centers)):
+            cam = f"cam{i + 1}"
             fx, cx, fy, cy = (float(v) for v in self.K[[0, 0, 1, 1],
                                                       [0, 2, 1, 2]])
             (root / "calib" / f"{cam}.txt").write_text(

@@ -121,9 +121,58 @@ anything in it fails:
    resected centre within 1 mm of its surveyed centre (the known-centre
    branch pins it), matches.png and both keypoint files an epoch.
 
-Phase 10 runs after phase 5 on its pair, phase 12 after phase 8 on
-phase 7's frames, and phase 11 after it, all before the timing of phase
-9; their results are in the same JSON line.
+13. SuperGlue path: SuperGlueMatcher.match on phase 4's pair with
+   phase 4's call (2x2 EXHAUSTIVE tiles, 200 px overlap, 4096 keypoints
+   a tile, PYDEGENSAC), the JAX package's defaults (SuperPoint at NMS
+   radius 3, keypoint threshold 0.001; 18 layers, d 256, 4 heads, 20
+   Sinkhorn iterations, match threshold 0.3), bundled SuperPoint,
+   random SuperGlue weights from seed 0; cold, then warm; launches
+   exactly phase 4's NMS count and 36 attention launches (18 layers x
+   2) per pair chunk; the NMS kernel bit for bit against its plain
+   version on the run's own heat map at r = 3, the attention kernel
+   against the plain bf16 version on the first layer's own f32 q, k, v
+   and mask (the phase-3 rule); the forward on the run's tile-pair
+   batch with the kernel and with the plain bf16 attention: the
+   log-assignment row argmax agrees on >= 98% of the valid rows, the
+   match decisions as well as two plain versions do (phase 5's
+   yardstick; random weights make the shift meaningless); the kernel,
+   the plain bf16 version, SDPA and the bound at SuperGlue's attention
+   shape (f32 in, head-major views), and the NMS kernel at r = 3;
+14. DISK and ALIKED: phase 4's pair and call through
+   NearestNeighborMatcher over ALIKED (bundled weights; >= 50% of the
+   inliers within 1.5 px of the shift, the floor
+   tests/test_trained_aliked.py sets for this checkpoint), over DISK
+   (random weights; precision and counts printed), and LightGlueMatcher
+   over ALIKED (input dim 128, random LightGlue weights): no NMS launch
+   (both detectors pool in plain PyTorch, as in the JAX package) and
+   exactly 36 attention launches per pair chunk;
+15. semi-dense and LoFTR: SemiDenseMatcher (bundled SuperPoint, 8-px
+   tokens, OC refinement, which runs on full-frame matches) on the
+   centre SEMIDENSE_CROP of phase 4's pair (the whole frame would be
+   376k tokens): >= 90% of the inliers within 1.5 px of the shift, the
+   refined share printed; LoFTRMatcher at the published architecture
+   with random weights (confidence threshold 1e-8) on the finest n x n
+   GRID whose tiles stay under MAX_COARSE_TOKENS (tile sizes from
+   compute_tile_limits); neither launches a kernel; LoFTR's coarse
+   confidences and match sets on the card against the same weights on
+   the card's CPU on a LOFTR_CROP crop (f32, no TF32): confidences
+   within 5e-4 of the largest, match sets Jaccard >= 0.99, common fine
+   keypoints within 3e-4 px (10x the first H100 run's differences);
+16. season tools: Pipeline.warmup() then run() on phase 7's frames, two
+   epochs with tracking (warmup's launches printed; the epochs'
+   launches exactly phase 4's, plus one seeded forward on epoch 1),
+   and watch(poll_interval=0, stop_after=2) on the same frames: every
+   epoch ok without recovery, BA RMSE within SEASON_GATES, the same
+   epochs; the first epoch's time after warmup and phase 7's first
+   epoch (no warmup) printed; the native EXIF scanner, built with g++
+   on this machine, against the Python reader on JPEGs whose EXIF
+   block the script writes byte by byte.
+
+Phase 10 runs after phase 5 on its pair and phases 13-15 after it,
+phase 12 after phase 8 on phase 7's frames, phase 16 after it and
+phase 11 after those, all before the timing of phase 9; their results
+are in the same JSON line. The kernels line's launches are those of
+the matcher paths of phases 4, 13 and 14 (the sweep's of phase 6).
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -1118,6 +1167,440 @@ def resection_season_path(base_cfg: dict, n_epochs: int) -> dict:
     return out
 
 
+# -- phase 13: the SuperGlue path ----------------------------------------------
+
+def superglue_path(dev, reset_counts, read_counts, img0, img1, call: dict,
+                   n_chunks_nms: int, max_keypoints: int = 4096) -> dict:
+    """Phase 13 (see the module doc). Returns what the JSON line
+    reports."""
+    from icepy4d_tpu_torch.matching import SuperGlueMatcher
+    from icepy4d_tpu_torch.models import superglue as sgm
+    from icepy4d_tpu_torch.models import superpoint as spm
+    from icepy4d_tpu_torch.ops import attention, nms
+
+    matcher = SuperGlueMatcher({"max_keypoints": max_keypoints, "seed": 0},
+                               device=dev)
+    captured, heats, operands = [], [], []
+    run_matcher = matcher._run_matcher
+    run_nms = spm.fused_nms_border
+    run_attention = sgm.masked_attention
+
+    def capture(data):
+        captured.append(data)
+        return run_matcher(data)
+
+    def capture_heat(heat, *a):
+        if not heats:
+            heats.append(heat)
+        return run_nms(heat, *a)
+
+    def capture_operands(q, k, v, kmask):
+        if not operands:
+            operands.append((q, k, v, kmask))
+        return run_attention(q, k, v, kmask)
+
+    matcher._run_matcher = capture
+    spm.fused_nms_border = capture_heat
+    sgm.masked_attention = capture_operands
+    times = {}
+    try:
+        for run in ("cold", "warm"):
+            captured.clear()
+            heats.clear()
+            operands.clear()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            matcher.match(img0, img1, **call)
+            torch.cuda.synchronize()
+            times[run] = time.perf_counter() - t0
+            counts = read_counts()
+    finally:
+        matcher._run_matcher = run_matcher
+        spm.fused_nms_border = run_nms
+        sgm.masked_attention = run_attention
+    err = np.linalg.norm(matcher.mkpts0 - matcher.mkpts1 - [DX, DY], axis=1)
+    out = {"cold_s": times["cold"], "warm_s": times["warm"],
+           "stages_s": dict(matcher.timer.times), "launches": counts,
+           "pair_chunks": len(captured),
+           "putative": len(matcher.inlier_mask)
+           if matcher.inlier_mask is not None else 0,
+           "inliers": len(matcher.mkpts0),
+           "precision": float((err < 1.5).mean()) if len(err) else 0.0}
+    log(f"superglue path: {W_IMG}x{H_IMG} pair, random SuperGlue weights "
+        f"(seed 0), cold {times['cold']:.3f} s, warm {times['warm']:.3f} s, "
+        f"stages {out['stages_s']}")
+    log(f"  putative {out['putative']}, inliers {out['inliers']}, "
+        f"precision {out['precision']:.4f} (random weights: no gate), pair "
+        f"chunks {len(captured)}, launches {counts}")
+    n_layers = len(matcher.matcher.gnn)
+    want = {"nms": n_chunks_nms, "attention": 2 * n_layers * len(captured),
+            "sweep": 0}
+    if counts != want:
+        raise AssertionError(f"superglue launches {counts} != {want}")
+    # the NMS kernel at r = 3 on the run's own heat map, bit for bit
+    heat = heats[0]
+    out["nms_err"] = check_nms(nms, heat, 3, (0, 0),
+                               "SuperGlue's SuperPoint heat map")
+    log(f"  nms on the run's heat map {tuple(heat.shape)} at r=3: bitwise "
+        f"equal")
+    q, k, v, kmask = operands[0]
+    out["attention_err"] = valid_rows_check(
+        attention, q, k, v, kmask, "SuperGlue's first layer (f32 heads)")
+
+    # the forward with the kernel against the plain bf16 attention
+    sg = matcher.matcher
+    data = captured[0]
+    valid = data["mask0"]
+    plain_bf16 = partial(attention.attention_plain,
+                         operand_dtype=torch.bfloat16)
+    plain_f32 = partial(attention.attention_plain,
+                        operand_dtype=torch.float32)
+    got = sg.match(data)
+    ref = sg.match(data, attn=plain_bf16)
+    ref32 = sg.match(data, attn=plain_f32)
+
+    def rows(a, b) -> float:
+        return ((a == b) & valid).sum().item() / valid.sum().item()
+
+    la, la_ref = got["log_assignment"], ref["log_assignment"]
+    out["argmax_agreement"] = rows(la[:, :-1].argmax(-1),
+                                   la_ref[:, :-1].argmax(-1))
+    out["match_agreement"] = rows(got["matches0"], ref["matches0"])
+    out["yardstick"] = rows(ref32["matches0"], ref["matches0"])
+    log(f"  superglue B={valid.shape[0]}x{valid.shape[1]}: kernel vs plain "
+        f"bf16 attention: log-assignment row argmax agrees on "
+        f"{out['argmax_agreement']:.5f} of valid rows, match decisions on "
+        f"{out['match_agreement']:.5f} (yardstick, plain f32 vs plain bf16: "
+        f"{out['yardstick']:.5f})")
+    if out["argmax_agreement"] < 0.98:
+        raise AssertionError(f"superglue argmax agreement "
+                             f"{out['argmax_agreement']} < 0.98")
+    if out["match_agreement"] < out["yardstick"] - 0.01:
+        raise AssertionError(f"superglue match agreement "
+                             f"{out['match_agreement']} below the yardstick "
+                             f"{out['yardstick']}")
+    del captured, heats, operands, data, got, ref, ref32, la, la_ref
+    torch.cuda.empty_cache()
+
+    # times at SuperGlue's attention shape (f32 operands in head-major
+    # (B, N, H, hd) storage, the batch's own key mask) and of the NMS
+    # at r = 3
+    b, h, nq, nk = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
+    ms = cuda_ms(lambda: attention.masked_attention(q, k, v, kmask), 10)
+    plain = cuda_ms(lambda: attention.attention_plain(
+        q, k, v, kmask, operand_dtype=torch.bfloat16), 3)
+    sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=kmask[:, None, None, :]), 3)
+    # f32 q, k, v and the bool mask in, f32 out
+    bound, by = lower_bound(b * h * 64 * 4 * (2 * nq + 2 * nk) + b * nk,
+                            4 * b * h * nq * nk * 64, BF16_FLOPS)
+    out["attention_times"] = {"shape": (b, h, nq, nk), "ms": ms,
+                              "plain_ms": plain, "library_ms": sdpa,
+                              "bound_ms": bound, "bound_by": by}
+    log(f"  attention {(b, h, nq, nk)} f32 head-major views: kernel "
+        f"{ms:.4f} ms, plain bf16 {plain:.4f}, SDPA (f32) {sdpa:.4f}, bound "
+        f"{bound:.4f} ({by})")
+    shape = tuple(heat.shape)
+    rand = heat_map(shape, dev)
+    hb, hh, hw = shape
+    nms_ms = cuda_ms(lambda: nms.fused_nms_border(rand, 3, 4, hh, hw), 20)
+    nms_plain = cuda_ms(lambda: nms.nms_border_plain(rand, 3, 4, hh, hw), 5)
+    px = hb * hh * hw
+    # f32 read + write; 5 pools x 2 separable passes x 2r compares
+    nms_bound, nms_by = lower_bound(px * 8, px * 5 * 2 * 6, F32_FLOPS)
+    out["nms_times"] = {"shape": shape, "radius": 3, "ms": nms_ms,
+                        "plain_ms": nms_plain, "bound_ms": nms_bound,
+                        "bound_by": nms_by}
+    log(f"  nms {shape} r=3: kernel {nms_ms:.4f} ms, plain {nms_plain:.4f}, "
+        f"bound {nms_bound:.4f} ({nms_by})")
+    del q, k, v, kmask, heat, rand, matcher
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 14: DISK and ALIKED -------------------------------------------------
+
+def timed_match(reset_counts, read_counts, label: str, matcher, img0, img1,
+                want_attention_per_chunk: int = 0, **call) -> dict:
+    """A matcher's match, cold then warm, with every launch count set to
+    0 before each; the warm run's launches must be no NMS or sweep and
+    `want_attention_per_chunk` attention launches a pair chunk."""
+    chunks = []
+    run_matcher = matcher._run_matcher
+
+    def capture(data):
+        chunks.append(data["mask0"].shape)
+        return run_matcher(data)
+
+    matcher._run_matcher = capture
+    times = {}
+    try:
+        for run in ("cold", "warm"):
+            chunks.clear()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            matcher.match(img0, img1, **call)
+            torch.cuda.synchronize()
+            times[run] = time.perf_counter() - t0
+            counts = read_counts()
+    finally:
+        matcher._run_matcher = run_matcher
+    err = np.linalg.norm(matcher.mkpts0 - matcher.mkpts1 - [DX, DY], axis=1)
+    out = {"cold_s": times["cold"], "warm_s": times["warm"],
+           "stages_s": dict(matcher.timer.times), "launches": counts,
+           "putative": len(matcher.inlier_mask)
+           if matcher.inlier_mask is not None else 0,
+           "inliers": len(matcher.mkpts0),
+           "precision": float((err < 1.5).mean()) if len(err) else 0.0}
+    log(f"  {label}: cold {times['cold']:.3f} s, warm {times['warm']:.3f} "
+        f"s, putative {out['putative']}, inliers {out['inliers']}, "
+        f"precision {out['precision']:.4f}, pair chunks {len(chunks)}, "
+        f"launches {counts}, stages {out['stages_s']}")
+    want = {"nms": 0, "attention": want_attention_per_chunk * len(chunks),
+            "sweep": 0}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} != {want}")
+    return out
+
+
+def extractor_path(dev, reset_counts, read_counts, img0, img1, call: dict,
+                   max_keypoints: int = 4096) -> dict:
+    """Phase 14 (see the module doc). Returns what the JSON line
+    reports."""
+    from icepy4d_tpu_torch.matching import (LightGlueMatcher,
+                                            NearestNeighborMatcher)
+
+    run = partial(timed_match, reset_counts, read_counts, img0=img0,
+                  img1=img1, **call)
+    log("DISK and ALIKED extractors:")
+    res = {}
+    m = NearestNeighborMatcher({"extractor": "aliked",
+                                "max_keypoints": max_keypoints}, device=dev)
+    res["nn_aliked"] = run("NN over ALIKED (bundled weights)", m)
+    # the floor tests/test_trained_aliked.py sets for this checkpoint
+    if res["nn_aliked"]["precision"] < 0.5:
+        raise AssertionError(f"NN over ALIKED: precision "
+                             f"{res['nn_aliked']['precision']} < 0.5")
+    m = NearestNeighborMatcher({"extractor": "disk", "seed": 0,
+                                "max_keypoints": max_keypoints}, device=dev)
+    res["nn_disk"] = run("NN over DISK (random weights, seed 0)", m)
+    m = LightGlueMatcher({"extractor": "aliked", "seed": 0,
+                          "max_keypoints": max_keypoints}, device=dev)
+    res["lightglue_aliked"] = run(
+        "LightGlue over ALIKED (input dim 128, random LightGlue weights)",
+        m, want_attention_per_chunk=4 * m.matcher.n_layers)
+    del m
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 15: semi-dense and LoFTR -------------------------------------------
+
+SEMIDENSE_CROP = (1504, 2008)  # h, w: 188 x 251 = 47188 8-px tokens
+LOFTR_CROP = (240, 320)        # the card-against-CPU comparison's crop
+
+
+def loftr_semidense_path(dev, reset_counts, read_counts, img0, img1,
+                         n_tiles_max: int = 8) -> dict:
+    """Phase 15 (see the module doc). Returns what the JSON line
+    reports."""
+    from icepy4d_tpu_torch.matching import (GeometricVerification,
+                                            LoFTRMatcher, Quality,
+                                            SemiDenseMatcher, TileSelection,
+                                            Tiler)
+    from icepy4d_tpu_torch.models.loftr import LoFTR
+
+    run = partial(timed_match, reset_counts, read_counts,
+                  quality=Quality.HIGH, threshold=1.0,
+                  geometric_verification=GeometricVerification.PYDEGENSAC)
+    log("semi-dense and LoFTR:")
+    res = {}
+    # OC refinement runs on full-frame matches; 8-px tokens (grid_pool 1)
+    # on the centre crop: the whole frame would be 376k tokens
+    ch, cw = SEMIDENSE_CROP
+    y0, x0 = (H_IMG - ch) // 2, (W_IMG - cw) // 2
+    crop0 = np.ascontiguousarray(img0[y0:y0 + ch, x0:x0 + cw])
+    crop1 = np.ascontiguousarray(img1[y0:y0 + ch, x0:x0 + cw])
+    m = SemiDenseMatcher({"grid_pool": 1}, device=dev)
+    res["semidense"] = run(f"semi-dense, {cw}x{ch} centre crop, 8-px "
+                           f"tokens, OC refinement", m, crop0, crop1)
+    res["semidense"]["refined_share"] = m.refined_share
+    log(f"  semi-dense refined share {m.refined_share:.4f}")
+    if res["semidense"]["precision"] < 0.9 or not res["semidense"]["inliers"]:
+        raise AssertionError(f"semi-dense: {res['semidense']}")
+    del m, crop0, crop1
+    torch.cuda.empty_cache()
+
+    # LoFTR on the finest n x n grid whose tiles fit MAX_COARSE_TOKENS
+    for n in range(2, n_tiles_max + 1):
+        tiler = Tiler(grid=[n, n], overlap=200)
+        tiler.compute_limits_by_grid(np.empty((H_IMG, W_IMG)))
+        th, tw = tiler.tile_size
+        if (th // 8) * (tw // 8) <= LoFTR.MAX_COARSE_TOKENS:
+            break
+    # random weights' dual-softmax confidences lie far under the
+    # published 0.2; mutual nearest neighbours above 1e-8 are kept
+    m = LoFTRMatcher({"seed": 0, "confidence_threshold": 1e-8}, device=dev)
+    res["loftr"] = run(f"LoFTR, {n}x{n} GRID tiles of {tw}x{th} "
+                       f"({(th // 8) * (tw // 8)} coarse tokens), random "
+                       f"weights", m, img0, img1,
+                       tile_selection=TileSelection.GRID, grid=[n, n],
+                       overlap=200)
+    res["loftr"].update(grid=n, tile=(th, tw))
+    if not res["loftr"]["putative"]:
+        raise AssertionError("LoFTR found no match")
+
+    # the same weights on the card and on the card's CPU, f32 without
+    # TF32, on a crop: coarse confidences and match sets
+    state = {k: v.cpu() for k, v in m.matcher.net.state_dict().items()}
+    h, w = LOFTR_CROP
+    a = img0[:h, :w].astype(np.float32) / 255.0
+    b = img1[:h, :w].astype(np.float32) / 255.0
+    outs, confs = {}, {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = LoFTR(thr=1e-8, max_matches=1024, precision="highest",
+                      device=device).load_state_dict(state)
+        ta = torch.from_numpy(a).to(device)[None]
+        tb = torch.from_numpy(b).to(device)[None]
+        cells = torch.ones((1, (h // 8) * (w // 8)), dtype=torch.bool,
+                           device=device)
+        with torch.inference_mode(), model._precision():
+            c0, c1, *_ = model.coarse_features(ta, tb, cells, cells)
+            confs[name] = model.coarse_confidence(c0, c1, cells,
+                                                  cells)[0].cpu()
+        outs[name] = {k: v[0].cpu() for k, v in
+                      model.match_pair(a, b).items()}
+    conf_err = (confs["card"] - confs["cpu"]).abs().max().item()
+    conf_rel = conf_err / confs["cpu"].max().item()
+
+    def table(o):
+        v = o["valid"]
+        return {tuple(k.tolist()): p for k, p in
+                zip(o["keypoints0"][v], o["keypoints1"][v])}
+
+    tc, tp = table(outs["card"]), table(outs["cpu"])
+    common = tc.keys() & tp.keys()
+    jaccard = len(common) / max(len(tc.keys() | tp.keys()), 1)
+    kp_err = max((float((tc[k] - tp[k]).abs().max()) for k in common),
+                 default=0.0)
+    res["loftr_card_vs_cpu"] = {"crop": LOFTR_CROP, "conf_max_abs": conf_err,
+                                "conf_rel": conf_rel, "matches_card": len(tc),
+                                "matches_cpu": len(tp), "jaccard": jaccard,
+                                "keypoints1_max_px": kp_err}
+    log(f"  LoFTR card vs the card's CPU on a {w}x{h} crop: coarse "
+        f"confidences max abs diff {conf_err:.3e} ({conf_rel:.3e} of the "
+        f"largest), matches {len(tc)} / {len(tp)}, Jaccard {jaccard:.4f}, "
+        f"fine keypoints max {kp_err:.3e} px")
+    # tolerances, 10x what the first H100 run read (confidences 5.0e-5
+    # of the largest, fine keypoints 3.1e-5 px apart, the same 106
+    # matches): the confidences within 5e-4 of the largest, the common
+    # fine keypoints within 3e-4 px, the match sets Jaccard >= 0.99
+    if not (conf_rel <= 5e-4 and jaccard >= 0.99 and kp_err <= 3e-4
+            and len(tc) > 0):
+        raise AssertionError(f"LoFTR card vs CPU: {res['loftr_card_vs_cpu']}")
+    del m, outs, confs
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 16: the season tools ------------------------------------------------
+
+def epoch_seconds(stage_times: dict) -> float:
+    """An epoch's time: the sum of its stage times (the "_s" keys)."""
+    return sum(v for k, v in stage_times.items() if k.endswith("_s"))
+
+
+def season_tools_path(reset_counts, read_counts, base_cfg: dict,
+                      expected: list, first_epoch_cold_s: float) -> dict:
+    """Phase 16 (see the module doc). Returns what the JSON line
+    reports."""
+    import copy
+
+    from icepy4d_tpu_torch.pipeline import Pipeline
+
+    def config(name):
+        cfg = copy.deepcopy(base_cfg)
+        cfg["paths"]["results_dir"] = str(
+            Path(cfg["paths"]["image_dir"]).parent / name)
+        cfg["proc"].update(do_tracking=True, save_checkpoints=False,
+                           epoch_to_process=[0, 1])
+        return cfg
+
+    log("season tools:")
+    pipe = Pipeline(config("res_warmup"))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_counts = read_counts()
+    epochs, run_s, per_epoch = run_season(pipe, reset_counts, read_counts)
+    epoch_s = [epoch_seconds(t) for t in pipe.stage_times.values()]
+    out = {"warmup_s": warm_s, "warmup_launches": warm_counts,
+           "run_s": run_s, "epoch_s": epoch_s,
+           "first_epoch_without_warmup_s": first_epoch_cold_s,
+           "launches": per_epoch,
+           "status": [e.quality["status"] for e in epochs],
+           "rmse_px": [e.quality["stats"].get("ba_rmse_px") for e in epochs]}
+    log(f"  warmup {warm_s:.3f} s (launches {warm_counts}); then run(): "
+        f"epochs {[round(t, 3) for t in epoch_s]} s, launches {per_epoch}; "
+        f"the season path's first epoch without warmup took "
+        f"{first_epoch_cold_s:.3f} s (phase 7, the process's first "
+        f"Pipeline)")
+    wat = list(Pipeline(config("res_watch")).watch(poll_interval=0,
+                                                   stop_after=2))
+    out["watch_status"] = [e.quality["status"] for e in wat]
+    out["watch_rmse_px"] = [e.quality["stats"].get("ba_rmse_px")
+                            for e in wat]
+    log(f"  watch(poll_interval=0, stop_after=2): {len(wat)} epochs, "
+        f"status {out['watch_status']}, BA rmse {out['watch_rmse_px']}")
+    for e in epochs + wat:
+        q = e.quality
+        if q["status"] != "ok" or "recovered" in q["stats"] or not \
+                q["stats"].get("ba_rmse_px", np.inf) <= SEASON_GATES["rmse_px"]:
+            raise AssertionError(f"season tools epoch {e.date_str}: {q}")
+    if len(epochs) != 2 or len(wat) != 2 or \
+            [e.timestamp for e in wat] != [e.timestamp for e in epochs]:
+        raise AssertionError("watch did not process the run's epochs")
+    if per_epoch != expected or warm_counts["nms"] == 0:
+        raise AssertionError(f"season tools launches {per_epoch} != "
+                             f"{expected}, warmup {warm_counts}")
+    return out
+
+
+def exif_check(root) -> dict:
+    """The native EXIF scanner, built from native/exif_scan.cpp on this
+    machine, against the Python reader on JPEGs whose EXIF block the
+    script writes byte by byte."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_port_inputs import exif_jpeg
+
+    from icepy4d_tpu_torch.core.images import Image, read_exif_tags
+    from icepy4d_tpu_torch.native import exif_scan_batch, native_available
+
+    root = Path(root)
+    img = np.zeros((32, 48, 3), np.uint8)
+    stamps = ["2022:07:28 10:11:12", "2023:01:02 03:04:05"]
+    paths = []
+    for i, s in enumerate(stamps):
+        paths.append(root / f"exif_{i}.jpg")
+        exif_jpeg(paths[-1], img, s, focal_mm=24.0 + i)
+    if not native_available():
+        raise AssertionError("the native EXIF scanner did not build")
+    dts, focals = exif_scan_batch(paths)
+    ref = [Image(p).datetime for p in paths]
+    ref_f = [read_exif_tags(p)["FocalLength"] for p in paths]
+    out = {"native": [str(d) for d in dts], "python": [str(d) for d in ref],
+           "focal_native": focals.tolist(), "focal_python": ref_f}
+    log(f"  native EXIF scanner vs the Python reader: {out}")
+    if dts != ref or not np.allclose(focals, ref_f):
+        raise AssertionError(f"EXIF scanners disagree: {out}")
+    return out
+
+
 def main() -> None:
     # -- 1. card ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1348,6 +1831,18 @@ def main() -> None:
     adaptive["attention_times"] = [
         attention_times(attention, dev, (16, 4, n, n)) for n in (512, 2048)]
 
+    # -- 13. SuperGlue, 14. DISK and ALIKED, 15. semi-dense and LoFTR --------
+    superglue = superglue_path(dev, reset_counts, read_counts, img0, img1,
+                               call, n_chunks)
+    extractors = extractor_path(dev, reset_counts, read_counts, img0, img1,
+                                call)
+    loftr = loftr_semidense_path(dev, reset_counts, read_counts, img0, img1)
+    # the kernels' launches on the main paths: phases 4, 13 and 14
+    path_launches = {
+        name: launches[name] + superglue["launches"][name]
+        + sum(r["launches"][name] for r in extractors.values())
+        for name in ("nms", "attention")}
+
     # -- 6. dense path ---------------------------------------------------------
     cams, imgs = plane_pair()
     pss = PlaneSweepStereo(cams, imgs, depth_min=0.7 * PLANE_Z,
@@ -1428,6 +1923,14 @@ def main() -> None:
         pnp = {"space_resection": pnp_check(dev),
                "magsac": magsac_check(dev, putatives),
                "season": resection_season_path(season_cfg, n_epochs=2)}
+        # -- 16. the season tools on the same frames
+        untracked = dict(launches, sweep=0)
+        tools = season_tools_path(
+            reset_counts, read_counts, season_cfg,
+            [untracked, dict(untracked, attention=untracked["attention"]
+                             + seeded_attention)],
+            epoch_seconds(season["stage_times_s"]["0"]))
+        tools["exif"] = exif_check(tmp)
         del scene
     torch.cuda.empty_cache()
 
@@ -1494,13 +1997,13 @@ def main() -> None:
         {"name": "fused_nms_border", "route": "cuda",
          "source": "icepy4d_tpu_torch/csrc/nms.cu",
          "replaces": "icepy4d_tpu/ops/pallas_nms.py:105",
-         "launches": launches["nms"], "max_abs_err": nms_err,
+         "launches": path_launches["nms"], "max_abs_err": nms_err,
          "ms": nms_ms, "plain_ms": nms_plain_ms, "bound_ms": nms_bound,
          "bound_by": nms_by, "library_ms": None},
         {"name": "masked_flash_attention", "route": "cuda",
          "source": "icepy4d_tpu_torch/csrc/attention.cu",
          "replaces": "icepy4d_tpu/ops/attention.py:109",
-         "launches": launches["attention"], "max_abs_err": att_err,
+         "launches": path_launches["attention"], "max_abs_err": att_err,
          "ms": att_ms, "plain_ms": att_plain_ms, "bound_ms": att_bound,
          "bound_by": att_by, "library_ms": sdpa_ms},
         {"name": "disparity_sweep", "route": "cuda",
@@ -1521,7 +2024,9 @@ def main() -> None:
             "sweep_shape": sweep_shape},
         "season_path": season, "sift_season_path": sift_season,
         "adaptive_path": adaptive, "multicam_path": multicam,
-        "pnp_magsac_resection": pnp}))
+        "pnp_magsac_resection": pnp, "superglue_path": superglue,
+        "extractor_path": extractors, "loftr_semidense_path": loftr,
+        "season_tools_path": tools}, default=str))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

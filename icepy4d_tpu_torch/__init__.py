@@ -12,4 +12,19 @@ the kernel for CUDA tensors and runs its plain PyTorch version for CPU
 tensors.
 """
 
+from icepy4d_tpu_torch.core import (  # noqa: F401
+    Calibration,
+    Camera,
+    Epoch,
+    Epoches,
+    EpochDataMap,
+    Features,
+    FeatureSet,
+    Image,
+    ImageDS,
+    PointCloud,
+    Points,
+    PointSet,
+    Targets,
+)
 from icepy4d_tpu_torch.device import resolve_device  # noqa: F401

@@ -1,17 +1,100 @@
-"""Host feature store.
+"""Feature containers (counterpart of `icepy4d_tpu/core/features.py`).
 
-Counterpart of `icepy4d_tpu/core/features.py::Features`: a growable
-numpy struct-of-arrays (keypoints, descriptors, scores, track ids) with
-the reference's API. The padded device struct (`FeatureSet`) is not
-ported: neither the pipeline nor the tracking uses it.
+  * `FeatureSet`: the padded device struct, tensors of a fixed capacity
+    {xy, descr, score, track_id, mask}, `mask` marking the valid rows;
+  * `Features`: the growable host store (keypoints, descriptors,
+    scores, track ids as numpy arrays) with the reference's API, which
+    converts to and from a FeatureSet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import pickle
 from pathlib import Path
 
 import numpy as np
+import torch
+
+from icepy4d_tpu_torch.device import resolve_device
+
+
+def _capacity(n: int, capacity: int | None) -> int:
+    """The next power of two at or above n (at least 8) by default;
+    ValueError when n rows do not fit."""
+    if capacity is None:
+        capacity = max(8, 1 << (max(n, 1) - 1).bit_length())
+    if n > capacity:
+        raise ValueError(f"{n} rows exceed the capacity {capacity}")
+    return capacity
+
+
+@dataclasses.dataclass
+class FeatureSet:
+    xy: torch.Tensor        # (N, 2) float32 pixel coordinates
+    descr: torch.Tensor     # (N, D) float32 descriptors
+    score: torch.Tensor     # (N,) float32 detection scores
+    track_id: torch.Tensor  # (N,) int32 identity across epochs, -1 invalid
+    mask: torch.Tensor      # (N,) bool validity
+
+    @property
+    def capacity(self) -> int:
+        return self.xy.shape[-2]
+
+    @property
+    def num_valid(self) -> torch.Tensor:
+        return self.mask.sum(-1, dtype=torch.int32)
+
+    def replace(self, **changes) -> "FeatureSet":
+        return dataclasses.replace(self, **changes)
+
+    @classmethod
+    def empty(cls, capacity: int, descr_dim: int = 256,
+              device=None) -> "FeatureSet":
+        dev = resolve_device(device)
+        return cls(xy=torch.zeros((capacity, 2), device=dev),
+                   descr=torch.zeros((capacity, descr_dim), device=dev),
+                   score=torch.zeros((capacity,), device=dev),
+                   track_id=torch.full((capacity,), -1, dtype=torch.int32,
+                                       device=dev),
+                   mask=torch.zeros((capacity,), dtype=torch.bool,
+                                    device=dev))
+
+    @classmethod
+    def from_arrays(cls, xy, descr=None, score=None, track_id=None,
+                    capacity: int | None = None, descr_dim: int = 256,
+                    device=None) -> "FeatureSet":
+        """Pad host arrays up to `capacity` (default: the next power of
+        two). Descriptors may come as (N, D) or (D, N); track ids
+        default to 0..N-1."""
+        xy = np.asarray(xy, np.float32).reshape(-1, 2)
+        n = xy.shape[0]
+        if descr is not None:
+            descr = np.asarray(descr, np.float32)
+            if descr.shape[0] != n:
+                descr = descr.T
+            descr_dim = descr.shape[1]
+        out = cls.empty(_capacity(n, capacity), descr_dim, device)
+        dev = out.xy.device
+        out.xy[:n] = torch.from_numpy(xy).to(dev)
+        out.mask[:n] = True
+        if descr is not None:
+            out.descr[:n] = torch.from_numpy(descr).to(dev)
+        if score is not None:
+            out.score[:n] = torch.from_numpy(
+                np.asarray(score, np.float32).reshape(-1)).to(dev)
+        ids = (np.arange(n, dtype=np.int32) if track_id is None
+               else np.asarray(track_id, np.int32).reshape(-1))
+        out.track_id[:n] = torch.from_numpy(ids).to(dev)
+        return out
+
+    def compact(self) -> "Features":
+        """The valid rows as a host Features."""
+        m = self.mask.cpu().numpy()
+        return Features.from_numpy(
+            self.xy.cpu().numpy()[m], descr=self.descr.cpu().numpy()[m],
+            scores=self.score.cpu().numpy()[m],
+            track_ids=self.track_id.cpu().numpy()[m])
 
 
 class Features:
@@ -134,6 +217,13 @@ class Features:
         return {"x": float(self._xy[i, 0]), "y": float(self._xy[i, 1]),
                 "track_id": int(tid), "descr": self._descr[i],
                 "score": float(self._score[i])}
+
+    def to_padded(self, capacity: int | None = None,
+                  device=None) -> FeatureSet:
+        return FeatureSet.from_arrays(self._xy, descr=self._descr,
+                                      score=self._score,
+                                      track_id=self._track_id,
+                                      capacity=capacity, device=device)
 
     # -- persistence -------------------------------------------------------
     def save_as_txt(self, path, fmt: str = "%i", delimiter: str = ",",

@@ -4,12 +4,15 @@ Counterpart of `icepy4d_tpu/core/images.py`. Pixels are decoded with cv2
 (to RGB, as the JAX package's PIL decode gives them); EXIF tags are
 read by a small pure-Python reader of the TIFF directories of a JPEG's
 APP1 segment or of a TIFF file (IFD0 and the Exif sub-IFD).
-`ImageDS` lists a folder in sorted order; the native batch EXIF scan of
-the JAX package waits.
+`Image.get_intrinsics_from_exif` approximates K from the focal length
+and the sensor width database. `ImageDS` lists a folder in sorted order
+and timestamps it with one call of the native batch EXIF scanner
+(`native/exif.py`).
 """
 
 from __future__ import annotations
 
+import logging
 import struct
 from datetime import datetime
 from pathlib import Path
@@ -18,12 +21,15 @@ import numpy as np
 
 from icepy4d_tpu_torch.core.constants import DATE_FMT, DATETIME_FMT, TIME_FMT
 
+logger = logging.getLogger("icepy4d_tpu_torch")
+
 IMAGE_EXT = (".jpg", ".jpeg", ".png", ".tif", ".tiff", ".bmp")
 EXIF_DATETIME_FMT = "%Y:%m:%d %H:%M:%S"
 
 # the tags this reader names; others are kept under their numeric ids
-EXIF_TAGS = {0x0132: "DateTime", 0x8769: "ExifOffset",
-             0x9003: "DateTimeOriginal"}
+EXIF_TAGS = {0x010F: "Make", 0x0110: "Model", 0x0132: "DateTime",
+             0x8769: "ExifOffset", 0x9003: "DateTimeOriginal",
+             0x920A: "FocalLength"}
 _TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1, 9: 4, 10: 8}
 
 
@@ -215,6 +221,28 @@ class Image:
         x0, y0, x1, y1 = (int(v) for v in limits)
         return self.value[y0:y1, x0:x1]
 
+    def get_intrinsics_from_exif(self) -> np.ndarray | None:
+        """Approximate K from the EXIF focal length and the sensor width
+        of the EXIF make and model: f_px = f_mm * width / sensor_mm,
+        principal point at the centre. None when a tag is missing or
+        the camera is not in the database."""
+        from icepy4d_tpu_torch.core.sensor_width_database import \
+            SensorWidthDatabase
+
+        ex = self.exif
+        focal = ex.get("FocalLength")
+        make, model = ex.get("Make"), ex.get("Model")
+        if focal is None or make is None or model is None:
+            return None
+        try:
+            sensor_w = SensorWidthDatabase().lookup(str(make), str(model))
+        except LookupError:
+            return None
+        f_px = float(focal) * self.width / sensor_w
+        return np.array([[f_px, 0, self.width / 2.0],
+                         [0, f_px, self.height / 2.0],
+                         [0, 0, 1]], np.float32)
+
 
 class ImageDS:
     """Sorted folder datastore of images."""
@@ -227,6 +255,21 @@ class ImageDS:
         self.files = sorted(p for p in self.folder.iterdir()
                             if p.suffix.lower() in exts)
         self._images = [Image(p) for p in self.files]
+        self._prescan_exif()
+
+    def _prescan_exif(self) -> None:
+        """Timestamp the whole folder with one call of the native batch
+        scanner; where it is not available (its loader logs why) each
+        image reads its own EXIF when first asked."""
+        from icepy4d_tpu_torch.native import (exif_scan_batch,
+                                              native_available)
+
+        if not self.files or not native_available():
+            return
+        dts, _ = exif_scan_batch(self.files)
+        for im, dt in zip(self._images, dts):
+            if dt is not None:
+                im._datetime = dt
 
     def __len__(self) -> int:
         return len(self._images)

@@ -1,14 +1,66 @@
-"""Host 3D point store.
-
-Counterpart of `icepy4d_tpu/core/points.py::Points`: a growable numpy
-store of coordinates, colours in [0, 1] and track ids. The padded
-device struct (`PointSet`) is not ported: neither the pipeline nor the
-tracking uses it.
+"""3D point containers (counterpart of `icepy4d_tpu/core/points.py`):
+`PointSet`, the padded device struct {xyz, color, track_id, mask}, and
+`Points`, the growable host store of coordinates, colours in [0, 1] and
+track ids.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
+
+from icepy4d_tpu_torch.core.features import _capacity
+from icepy4d_tpu_torch.device import resolve_device
+
+
+@dataclasses.dataclass
+class PointSet:
+    xyz: torch.Tensor       # (N, 3) float32
+    color: torch.Tensor     # (N, 3) float32 in [0, 1]
+    track_id: torch.Tensor  # (N,) int32
+    mask: torch.Tensor      # (N,) bool
+
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[-2]
+
+    @property
+    def num_valid(self) -> torch.Tensor:
+        return self.mask.sum(-1, dtype=torch.int32)
+
+    def replace(self, **changes) -> "PointSet":
+        return dataclasses.replace(self, **changes)
+
+    @classmethod
+    def empty(cls, capacity: int, device=None) -> "PointSet":
+        dev = resolve_device(device)
+        return cls(xyz=torch.zeros((capacity, 3), device=dev),
+                   color=torch.zeros((capacity, 3), device=dev),
+                   track_id=torch.full((capacity,), -1, dtype=torch.int32,
+                                       device=dev),
+                   mask=torch.zeros((capacity,), dtype=torch.bool,
+                                    device=dev))
+
+    @classmethod
+    def from_arrays(cls, xyz, color=None, track_id=None,
+                    capacity: int | None = None, device=None) -> "PointSet":
+        """Pad host arrays up to `capacity` (default: the next power of
+        two); track ids default to 0..N-1."""
+        xyz = np.asarray(xyz, np.float32).reshape(-1, 3)
+        n = xyz.shape[0]
+        out = cls.empty(_capacity(n, capacity), device)
+        dev = out.xyz.device
+        out.xyz[:n] = torch.from_numpy(xyz).to(dev)
+        out.mask[:n] = True
+        if color is not None:
+            out.color[:n] = torch.from_numpy(
+                np.asarray(color, np.float32).reshape(-1, 3)).to(dev)
+        ids = (np.arange(n, dtype=np.int32) if track_id is None
+               else np.asarray(track_id, np.int32).reshape(-1))
+        out.track_id[:n] = torch.from_numpy(ids).to(dev)
+        return out
 
 
 class Points:
@@ -71,3 +123,9 @@ class Points:
 
     def filter_point_by_index(self, indexes) -> None:
         self._select(np.asarray(indexes, np.int64).reshape(-1))
+
+    def to_padded(self, capacity: int | None = None,
+                  device=None) -> PointSet:
+        return PointSet.from_arrays(self._xyz, color=self._color,
+                                    track_id=self._track_id,
+                                    capacity=capacity, device=device)

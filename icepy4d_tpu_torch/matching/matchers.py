@@ -1,13 +1,15 @@
 """Image matchers (counterpart of `ImageMatcherBase`, `LightGlueMatcher`,
-`NearestNeighborMatcher` and `SIFTMatcher` in
-`icepy4d_tpu/matching/matchers.py`; LightGlue at static depth).
+`SuperGlueMatcher`, `NearestNeighborMatcher`, `SIFTMatcher`,
+`SemiDenseMatcher` and `LoFTRMatcher` in
+`icepy4d_tpu/matching/matchers.py`).
 
-A tiled match runs the extractor (SuperPoint, or SIFT for the SIFT
-matcher) once per image over a batch of tiles (in chunks that fit an
-activation budget) and the matcher once over the batch of selected tile
-pairs. Keypoint sets are fixed-size with validity masks; matched rows
-are packed on the device and only they cross to the host, where
-keypoints are deduplicated and verified.
+A tiled match runs the extractor (SuperPoint, DISK, ALIKED or SIFT, by
+opt "extractor") once per image over a batch of tiles (in chunks that
+fit an activation budget) and the matcher once over the batch of
+selected tile pairs. Keypoint sets are fixed-size with validity masks;
+matched rows are packed on the device and only they cross to the host,
+where keypoints are deduplicated and verified. LoFTR is detector-free:
+it runs on the tile pairs' pixels.
 
 The last top-level match leaves its two images' device features in a
 cache keyed by the identities of the image objects it was given and by
@@ -34,12 +36,22 @@ from icepy4d_tpu_torch.matching.enums import (
 )
 from icepy4d_tpu_torch.matching.geometric_verification import \
     geometric_verification
+from icepy4d_tpu_torch.matching.templatematch import forient, oc_track
 from icepy4d_tpu_torch.matching.tiling import Tiler
-from icepy4d_tpu_torch.models.convert import (bundled_checkpoint,
-                                              lightglue_params, load_params,
+from icepy4d_tpu_torch.models.aliked import ALIKED
+from icepy4d_tpu_torch.models.convert import (aliked_params,
+                                              bundled_checkpoint, disk_params,
+                                              lightglue_params,
+                                              load_params, load_torch_disk,
+                                              load_torch_loftr,
+                                              load_torch_superglue,
+                                              loftr_params, superglue_params,
                                               superpoint_state_dict)
-from icepy4d_tpu_torch.models.lightglue import LightGlue
+from icepy4d_tpu_torch.models.disk import DISK, disk_tree
+from icepy4d_tpu_torch.models.lightglue import LightGlue, lightglue_tree
+from icepy4d_tpu_torch.models.loftr import LoFTR, loftr_tree
 from icepy4d_tpu_torch.models.sift import SIFT
+from icepy4d_tpu_torch.models.superglue import SuperGlue, superglue_tree
 from icepy4d_tpu_torch.models.superpoint import SuperPoint
 from icepy4d_tpu_torch.ops.buckets import pad_bucket
 from icepy4d_tpu_torch.ops.image import (extract_tiles, quality_resize,
@@ -138,15 +150,7 @@ class ImageMatcherBase:
         self._feat_cache: dict | None = None
         self._cache_armed = False
         self._build_models(opt)
-        kind = self._extractor_kind()
-        if kind == "superpoint":
-            self._sp_state = superpoint_state_dict(_load_tree(
-                opt, "superpoint_params", "superpoint_weights",
-                "superpoint_synthetic.npz"))
-        elif kind != "sift":
-            raise NotImplementedError(
-                f"the {kind} extractor is not ported to icepy4d_tpu_torch "
-                "yet")
+        self._load_extractor(opt)
         self._reset()
 
     # -- subclass hooks ------------------------------------------------------
@@ -156,6 +160,41 @@ class ImageMatcherBase:
 
     def _run_matcher(self, data: dict) -> dict:
         raise NotImplementedError
+
+    def _matcher_data_extra(self, feats: dict, idx, side: int) -> dict:
+        """Extra per-side matcher inputs (SuperGlue takes the scores)."""
+        return {}
+
+    def _load_extractor(self, opt: dict) -> None:
+        """The extractor's weights, by opt "extractor": SuperPoint and
+        ALIKED from opt superpoint_params (a JAX-layout tree) or
+        superpoint_weights (an .npz), else the bundled checkpoint; DISK
+        from superpoint_params, an .npz or a kornia checkpoint at
+        superpoint_weights, else random weights from opt "seed"; SIFT
+        has none."""
+        kind = self._extractor_kind()
+        if kind == "superpoint":
+            self._sp_state = superpoint_state_dict(_load_tree(
+                opt, "superpoint_params", "superpoint_weights",
+                "superpoint_synthetic.npz"))
+        elif kind == "aliked":
+            self._sp_state = aliked_params(_load_tree(
+                opt, "superpoint_params", "superpoint_weights",
+                "aliked_synthetic.npz"))
+        elif kind == "disk":
+            path = opt.get("superpoint_weights")
+            if "superpoint_params" in opt:
+                self._sp_state = disk_params(opt["superpoint_params"])
+            elif path is not None and str(path).endswith(".npz"):
+                self._sp_state = disk_params(load_params(path))
+            elif path is not None:
+                self._sp_state = load_torch_disk(path)
+            else:
+                logger.warning("DISK: no checkpoint given - random weights")
+                self._sp_state = disk_params(disk_tree(int(opt.get("seed",
+                                                                    0))))
+        elif kind != "sift":
+            raise ValueError(f"unknown extractor {kind!r}")
 
     # -- public results ------------------------------------------------------
 
@@ -212,14 +251,17 @@ class ImageMatcherBase:
 
     @property
     def descriptor_dim(self) -> int:
-        return 128 if self._extractor_kind() == "sift" else 256
+        return 128 if self._extractor_kind() in ("sift", "disk", "aliked") \
+            else 256
 
     # -- building blocks -----------------------------------------------------
 
     def _superpoint(self, max_keypoints: int):
-        """The local-feature extractor: SuperPoint, or the parameter-free
-        SIFT when opt extractor is "sift"."""
-        if self._extractor_kind() == "sift":
+        """The local-feature extractor: SuperPoint, DISK or ALIKED (NMS
+        radius max(nms_radius // 2, 2) for the last two), or the
+        parameter-free SIFT, by opt "extractor"."""
+        kind = self._extractor_kind()
+        if kind == "sift":
             key = ("sift", max_keypoints,
                    float(self._opt.get("contrast_threshold", 0.015)),
                    float(self._opt.get("edge_threshold", 12.0)),
@@ -232,16 +274,28 @@ class ImageMatcherBase:
                     dual_orientation=key[5], device=self.device)
             return self._sp_cache[key]
         key = (
+            kind,
             max_keypoints,
             float(self._opt.get("keypoint_threshold", 0.0005)),
             int(self._opt.get("nms_radius", 4)),
             str(self._opt.get("activation_dtype", "float32")),
         )
         if key not in self._sp_cache:
-            self._sp_cache[key] = SuperPoint(
-                max_keypoints=key[0], detection_threshold=key[1],
-                nms_radius=key[2], dtype=getattr(torch, key[3]),
-                device=self.device).load_state_dict(self._sp_state)
+            if kind == "disk":
+                ext = DISK(max_keypoints=key[1], detection_threshold=key[2],
+                           nms_radius=max(key[3] // 2, 2),
+                           device=self.device)
+            elif kind == "aliked":
+                ext = ALIKED(max_keypoints=key[1], detection_threshold=key[2],
+                             nms_radius=max(key[3] // 2, 2),
+                             device=self.device)
+            else:
+                ext = SuperPoint(max_keypoints=key[1],
+                                 detection_threshold=key[2],
+                                 nms_radius=key[3],
+                                 dtype=getattr(torch, key[4]),
+                                 device=self.device)
+            self._sp_cache[key] = ext.load_state_dict(self._sp_state)
         return self._sp_cache[key]
 
     @staticmethod
@@ -254,10 +308,19 @@ class ImageMatcherBase:
         return c
 
     def _extract_chunk(self, t: int, h: int, w: int) -> int:
-        # peak live trunk state per tile: two full-res 64-channel maps
-        act_bytes = 2 if str(self._opt.get(
-            "activation_dtype", "float32")) == "bfloat16" else 4
-        return self._auto_chunk(t, h * w * 128 * act_bytes, budget=13 << 30)
+        # peak live trunk state per tile pixel: SuperPoint two full-res
+        # 64-channel maps; DISK's full-res up block (the 80-channel input
+        # through norm and gate, 129 out); ALIKED's four upsampled
+        # aggregates, their concat and the normalised map
+        kind = self._extractor_kind()
+        if kind == "disk":
+            per_px = 2048
+        elif kind == "aliked":
+            per_px = 1024
+        else:
+            per_px = 128 * (2 if str(self._opt.get(
+                "activation_dtype", "float32")) == "bfloat16" else 4)
+        return self._auto_chunk(t, h * w * per_px, budget=13 << 30)
 
     def _extract(self, tiles: torch.Tensor, max_keypoints: int) -> dict:
         """SuperPoint over a (T, h, w) tile batch, chunked over T."""
@@ -333,6 +396,8 @@ class ImageMatcherBase:
             "mask1": feats1["mask"][idx1] & pv,
             "size1": size(size1),
         }
+        data.update(self._matcher_data_extra(feats0, idx0, 0))
+        data.update(self._matcher_data_extra(feats1, idx1, 1))
         return self._run_matcher(data)
 
     @staticmethod
@@ -468,8 +533,12 @@ class ImageMatcherBase:
         z = np.empty((0,), np.float32)
         return z2, z2, zd, zd, z, z, z
 
-    def _match_tiled(self, img0, img1, tile_selection: TileSelection, grid,
-                     overlap: int, origin, min_matches_per_tile: int):
+    def _prepare_tile_pairs(self, img0, img1, tile_selection: TileSelection,
+                            grid, overlap: int, origin,
+                            min_matches_per_tile: int):
+        """Tilers, tile-pair selection and the power-of-two pair batch
+        (as the JAX package pads it): (tiler0, tiler1, idx0, idx1,
+        pair_valid), or None when no pair is selected."""
         tiler0 = Tiler(grid=grid, overlap=overlap, origin=origin)
         tiler1 = Tiler(grid=grid, overlap=overlap, origin=origin)
         tiler0.compute_limits_by_grid(np.empty(img0.shape[:2]))
@@ -479,17 +548,22 @@ class ImageMatcherBase:
         self.timer.update("preselection")
         if not pairs:
             logger.warning("No tile pairs selected: no matches")
-            return self._empty_result()
-
-        # pad the pair list to a power-of-two batch, as the JAX package does
+            return None
         p = len(pairs)
         bucket = _round_up_pow2(p)
         idx0 = np.zeros(bucket, np.int64)
         idx1 = np.zeros(bucket, np.int64)
         idx0[:p] = [a for a, _ in pairs]
         idx1[:p] = [b for _, b in pairs]
-        pair_valid = np.arange(bucket) < p
+        return tiler0, tiler1, idx0, idx1, np.arange(bucket) < p
 
+    def _match_tiled(self, img0, img1, tile_selection: TileSelection, grid,
+                     overlap: int, origin, min_matches_per_tile: int):
+        prep = self._prepare_tile_pairs(img0, img1, tile_selection, grid,
+                                        overlap, origin, min_matches_per_tile)
+        if prep is None:
+            return self._empty_result()
+        tiler0, tiler1, idx0, idx1, pair_valid = prep
         th, tw = tiler0.tile_size
         feats0 = self._extract_tiled(img0, tiler0.tile_origins(), th, tw,
                                      self._max_keypoints)
@@ -610,7 +684,9 @@ class LightGlueMatcher(ImageMatcherBase):
     superpoint_weights / lightglue_weights (.npz paths) or
     superpoint_params / matcher_params (parameter trees in the JAX
     layout). With no weights given, the repository's bundled
-    checkpoints (weights/*.npz) are loaded.
+    checkpoints (weights/*.npz) are loaded; LightGlue over the 128-d
+    DISK or ALIKED descriptors then takes random weights from opt
+    "seed" (the bundled one takes SuperPoint's).
     """
 
     def _build_models(self, opt: dict) -> None:
@@ -624,9 +700,18 @@ class LightGlueMatcher(ImageMatcherBase):
             activation_dtype=str(opt.get("activation_dtype", "bfloat16")),
             device=self.device,
         )
-        self.matcher.load_state_dict(lightglue_params(_load_tree(
-            opt, "matcher_params", "lightglue_weights",
-            "lightglue_synthetic.npz")))
+        if self.descriptor_dim != 256 and "matcher_params" not in opt \
+                and "lightglue_weights" not in opt:
+            # the bundled LightGlue takes SuperPoint's 256-d descriptors
+            logger.warning("LightGlueMatcher: no checkpoint given for %d-d "
+                           "descriptors - random weights",
+                           self.descriptor_dim)
+            tree = lightglue_tree(self.matcher.n_layers, self.descriptor_dim,
+                                  seed=int(opt.get("seed", 0)))
+        else:
+            tree = _load_tree(opt, "matcher_params", "lightglue_weights",
+                              "lightglue_synthetic.npz")
+        self.matcher.load_state_dict(lightglue_params(tree))
 
     def _reset(self) -> None:
         super()._reset()
@@ -836,3 +921,245 @@ class SIFTMatcher(NearestNeighborMatcher):
             self.timer.update("guided_rematch")
             self.timer.print("Matching+guided")
         return out
+
+
+def _dense_grid(net, tiles: torch.Tensor, pool: int) -> dict:
+    """Grid tokens from SuperPoint's dense descriptor map: keypoints at
+    the centres of (8 * pool)-px cells, L2-normalised pooled
+    descriptors."""
+    b, h, w = tiles.shape[:3]
+    x = torch.nn.functional.pad(tiles.float(), (0, (-w) % 8, 0, (-h) % 8))
+    _, dense = net(x[:, None])                       # (B, D, H/8, W/8)
+    if pool > 1:
+        dense = torch.nn.functional.avg_pool2d(dense, pool)
+    d = dense / dense.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    gh, gw = d.shape[2:]
+    stride = 8 * pool
+    ys, xs = torch.meshgrid(torch.arange(gh, device=d.device),
+                            torch.arange(gw, device=d.device), indexing="ij")
+    kpts = torch.stack([xs * stride + stride / 2 - 0.5,
+                        ys * stride + stride / 2 - 0.5], -1).float()
+    valid = (kpts[..., 0] < w) & (kpts[..., 1] < h)
+    k = gh * gw
+    return {"keypoints": kpts.reshape(1, k, 2).expand(b, k, 2),
+            "descriptors": d.flatten(2).transpose(1, 2),
+            "scores": torch.ones((b, k), device=d.device),
+            "mask": valid.reshape(1, k).expand(b, k)}
+
+
+class SemiDenseMatcher(NearestNeighborMatcher):
+    """Detector-free semi-dense matcher: every cell of SuperPoint's dense
+    descriptor map, pooled over grid_pool x grid_pool cells (default 2,
+    16-px cells), is a token, and tokens are matched by mutual-NN cosine
+    (distance_threshold, default 0.8).
+
+    opt "refine" (default True): each match of a full-frame match is
+    moved to sub-pixel by OC template correlation (`templatematch`,
+    refine_template 16, refine_search 32 px) seeded at the coarse
+    displacement; a match whose correlation fails or has an SNR of 1.5
+    or less keeps its coarse position.
+
+    Tiled matches use the grid tokens too; the JAX package's tiled path
+    extracts SuperPoint keypoints instead (ROADMAP section 3).
+    """
+
+    def _build_models(self, opt: dict) -> None:
+        super()._build_models(opt)
+        self._grid_pool = int(opt.get("grid_pool", 2))
+        self._sim_th = float(opt.get("distance_threshold", 0.8))
+        self._refine = bool(opt.get("refine", True))
+        self._refine_template = int(opt.get("refine_template", 16))
+        self._refine_search = int(opt.get("refine_search", 32))
+        self.refined_share = float("nan")
+
+    def _refine_matches(self, img0: torch.Tensor, img1: torch.Tensor,
+                        mk0: np.ndarray, mk1: np.ndarray) -> np.ndarray:
+        """Sub-pixel refinement of coarse grid matches by orientation
+        correlation; failures keep the coarse position."""
+        res = oc_track(forient(img0), forient(img1), mk0,
+                       template_width=self._refine_template,
+                       search_width=self._refine_search,
+                       initialdu=(mk1[:, 0] - mk0[:, 0]).astype(np.float64),
+                       initialdv=(mk1[:, 1] - mk0[:, 1]).astype(np.float64))
+        ok = np.isfinite(res.du) & (res.snr > 1.5)
+        refined = mk1.copy()
+        # pu / pv are the rounded centres the correlator used
+        refined[ok, 0] = (res.pu + res.du)[ok] + (mk0[ok, 0] - res.pu[ok])
+        refined[ok, 1] = (res.pv + res.dv)[ok] + (mk0[ok, 1] - res.pv[ok])
+        self.refined_share = float(ok.mean())
+        logger.info("semi-dense refinement: %d / %d matches refined",
+                    int(ok.sum()), len(ok))
+        return refined.astype(np.float32)
+
+    def _match_full(self, img0, img1, max_keypoints=None):
+        res = super()._match_full(img0, img1, max_keypoints)
+        if self._refine and len(res[0]):
+            mk0, mk1, *rest = res
+            res = (mk0, self._refine_matches(img0, img1, mk0, mk1), *rest)
+        return res
+
+    def _extract(self, tiles: torch.Tensor, max_keypoints: int) -> dict:
+        net = self._superpoint(max_keypoints).net
+        t, h, w = tiles.shape[:3]
+        chunk = self._auto_chunk(t, h * w * 64 * 4)
+        return _cat([_dense_grid(net, tiles[i:i + chunk], self._grid_pool)
+                     for i in range(0, t, chunk)])
+
+    def _extract_tiled(self, g: torch.Tensor, origins: np.ndarray,
+                       th: int, tw: int, max_keypoints: int) -> dict:
+        t = len(origins)
+        chunk = self._auto_chunk(t, th * tw * 64 * 4)
+        return _cat([self._extract(extract_tiles(g, origins[i:i + chunk],
+                                                 th, tw), max_keypoints)
+                     for i in range(0, t, chunk)])
+
+
+_DETECTOR_FREE = ("LoFTRMatcher is detector-free: temporal tracking seeds "
+                  "(track_features) need a detector-based matcher "
+                  "(LightGlue/SuperGlue/NN/SemiDense). Configure "
+                  "matching.matcher accordingly when proc.do_tracking is on.")
+
+
+class LoFTRMatcher(ImageMatcherBase):
+    """LoFTR (`models/loftr.py`, the published architecture) inside the
+    standard match(): quality, tiling and geometric verification.
+    Detector-free: no extractor is built; keypoints come from the coarse
+    grid with the fine stage's sub-pixel refinement, descriptors are the
+    128-d fine centre features.
+
+    opt keys: loftr_weights (a kornia-layout or official checkpoint;
+    "matcher." prefixes are stripped) or matcher_params (a JAX-layout
+    tree), confidence_threshold (0.2), max_matches per pair (1024),
+    temp_bug_fix (False: the published checkpoints), precision
+    ("highest": no TF32). Without weights, random ones from opt "seed".
+    """
+
+    def _build_models(self, opt: dict) -> None:
+        self.matcher = LoFTR(
+            thr=float(opt.get("confidence_threshold", 0.2)),
+            max_matches=int(opt.get("max_matches", 1024)),
+            temp_bug_fix=bool(opt.get("temp_bug_fix", False)),
+            precision=str(opt.get("precision", "default")),
+            device=self.device)
+        if "matcher_params" in opt:
+            state = loftr_params(opt["matcher_params"])
+        elif "loftr_weights" in opt:
+            state = load_torch_loftr(opt["loftr_weights"])
+        else:
+            logger.warning("LoFTRMatcher: no checkpoint given - random "
+                           "weights")
+            state = loftr_params(loftr_tree(int(opt.get("seed", 0))))
+        self.matcher.load_state_dict(state)
+
+    def _load_extractor(self, opt: dict) -> None:
+        pass
+
+    @property
+    def descriptor_dim(self) -> int:
+        return 128
+
+    def _extract(self, tiles, max_keypoints):
+        raise NotImplementedError(_DETECTOR_FREE)
+
+    def _extract_tiled(self, *args, **kwargs):
+        raise NotImplementedError(_DETECTOR_FREE)
+
+    @staticmethod
+    def _out_to_host(out: dict, origin0=None, origin1=None):
+        valid = out["valid"].cpu().numpy()
+        host = {k: out[k].cpu().numpy() for k in (
+            "keypoints0", "keypoints1", "descriptors0", "descriptors1",
+            "confidence")}
+        mk0 = host["keypoints0"][valid]
+        mk1 = host["keypoints1"][valid]
+        if origin0 is not None:
+            pair_id = np.broadcast_to(np.arange(valid.shape[0])[:, None],
+                                      valid.shape)[valid]
+            mk0 = mk0 + origin0[pair_id]
+            mk1 = mk1 + origin1[pair_id]
+        conf = host["confidence"][valid]
+        return (mk0, mk1, host["descriptors0"][valid],
+                host["descriptors1"][valid], conf, conf, conf)
+
+    def _match_full(self, img0, img1, max_keypoints=None):
+        return self._out_to_host(self.matcher.match_pair(img0, img1))
+
+    def _pair_chunk(self, bucket: int, th: int, tw: int) -> int:
+        """Tile pairs a forward takes at once: the L0 x L1 similarity and
+        its two softmaxes (f32) and the pair mask, plus the fine windows,
+        against half the device's free memory (2 GiB on the CPU)."""
+        l_c = (th // 8) * (tw // 8)
+        per_pair = l_c * l_c * (3 * 4 + 1) + th * tw * 600
+        if self.device.type == "cuda":
+            budget = torch.cuda.mem_get_info(self.device)[0] // 2
+        else:
+            budget = 2 << 30
+        return self._auto_chunk(bucket, per_pair, budget=budget)
+
+    def _match_tiled(self, img0, img1, tile_selection: TileSelection, grid,
+                     overlap: int, origin, min_matches_per_tile: int):
+        prep = self._prepare_tile_pairs(img0, img1, tile_selection, grid,
+                                        overlap, origin, min_matches_per_tile)
+        if prep is None:
+            return self._empty_result()
+        tiler0, tiler1, idx0, idx1, pair_valid = prep
+        th, tw = tiler0.tile_size
+        org0 = tiler0.tile_origins()
+        org1 = tiler1.tile_origins()
+        chunk = self._pair_chunk(len(idx0), th, tw)
+        outs = []
+        for i in range(0, len(idx0), chunk):
+            outs.append(self.matcher.match_batch(
+                extract_tiles(img0, org0[idx0[i:i + chunk]], th, tw),
+                extract_tiles(img1, org1[idx1[i:i + chunk]], th, tw),
+                pair_valid[i:i + chunk]))
+        self.timer.update("extraction")
+        res = self._out_to_host(_cat(outs), org0.astype(np.float32)[idx0],
+                                org1.astype(np.float32)[idx1])
+        return self._dedup(*res)
+
+
+# the name the reference gives the class
+LOFTRMatcher = LoFTRMatcher
+
+
+class SuperGlueMatcher(ImageMatcherBase):
+    """SuperPoint + SuperGlue.
+
+    Defaults as the reference's: keypoint_threshold 0.001, nms_radius 3,
+    sinkhorn_iterations 20, match_threshold 0.3. opt keys besides:
+    superglue_weights (an official checkpoint, or an .npz of the JAX
+    tree) or matcher_params (a JAX-layout tree); without weights, random
+    ones from opt "seed" (drawn as the JAX package draws them).
+    """
+
+    def __init__(self, opt: dict | None = None, device=None) -> None:
+        opt = dict(opt or {})
+        opt.setdefault("keypoint_threshold", 0.001)
+        opt.setdefault("nms_radius", 3)
+        super().__init__(opt, device=device)
+
+    def _build_models(self, opt: dict) -> None:
+        self.matcher = SuperGlue(
+            sinkhorn_iterations=int(opt.get("sinkhorn_iterations", 20)),
+            match_threshold=float(opt.get("match_threshold", 0.3)),
+            device=self.device)
+        path = opt.get("superglue_weights")
+        if "matcher_params" in opt:
+            state = superglue_params(opt["matcher_params"])
+        elif path is not None and str(path).endswith(".npz"):
+            state = superglue_params(load_params(path))
+        elif path is not None:
+            state = load_torch_superglue(path)
+        else:
+            logger.warning("SuperGlueMatcher: no checkpoint given - random "
+                           "weights")
+            state = superglue_params(superglue_tree(
+                seed=int(opt.get("seed", 0))))
+        self.matcher.load_state_dict(state)
+
+    def _matcher_data_extra(self, feats: dict, idx, side: int) -> dict:
+        return {f"scores{side}": feats["scores"][idx]}
+
+    def _run_matcher(self, data: dict) -> dict:
+        return self.matcher.match(data)

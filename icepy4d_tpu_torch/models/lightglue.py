@@ -396,3 +396,41 @@ class LightGlue(nn.Module):
         return {"matches0": matches0, "matches1": matches1,
                 "mscores0": mscores0, "mscores1": mscores1,
                 "layers_run": exited_at, "capacity": int(mask0.shape[1])}
+
+
+def lightglue_tree(n_layers: int = 9, input_dim: int = 256,
+                   descriptor_dim: int = 256, num_heads: int = 4,
+                   seed: int = 0) -> dict:
+    """Random parameters in the JAX layout, drawn as the JAX package's
+    `LightGlue.init(seed)` draws them (numpy's default_rng(seed)), so
+    both packages hold the same random weights for one seed."""
+    d = descriptor_dim
+    hd = d // num_heads
+    npr = np.random.default_rng(seed)
+
+    def lin(din, dout):
+        return {"kernel": (npr.normal(size=(din, dout)) / np.sqrt(din)
+                           ).astype(np.float32),
+                "bias": np.zeros((dout,), np.float32)}
+
+    def ffn():
+        return {"dense1": lin(2 * d, 2 * d),
+                "norm": {"scale": np.ones(2 * d, np.float32),
+                         "bias": np.zeros(2 * d, np.float32)},
+                "dense2": lin(2 * d, d)}
+
+    params = {"input_proj": lin(input_dim, d),
+              "posenc": {"Wr": {"kernel": npr.normal(
+                  size=(2, hd // 2)).astype(np.float32)}},
+              "layers": [], "assign": [], "confidence": []}
+    for i in range(n_layers):
+        params["layers"].append({
+            "self_attn": {"Wqkv": lin(d, 3 * d), "out": lin(d, d),
+                          "ffn": ffn()},
+            "cross_attn": {"to_qk": lin(d, d), "to_v": lin(d, d),
+                           "out": lin(d, d), "ffn": ffn()}})
+        params["assign"].append({"matchability": lin(d, 1),
+                                 "final_proj": lin(d, d)})
+        if i < n_layers - 1:
+            params["confidence"].append({"token": lin(d, 1)})
+    return params

@@ -1,9 +1,10 @@
 """Multi-epoch pipeline of stereo and n-camera seasons.
 
 Counterpart of `icepy4d_tpu/pipeline.py`. Per stereo epoch: match
-(SuperPoint + LightGlue, static or adaptive, SuperPoint + mutual NN, or
-SIFT + Lowe NN with the epipolar-guided rematch, each with geometric
-verification) -> temporal tracking of the previous epoch's features
+(SuperPoint + LightGlue, static or adaptive, SuperPoint + SuperGlue,
+mutual NN over SuperPoint, DISK or ALIKED features, the semi-dense grid
+matcher, LoFTR, or SIFT + Lowe NN with the epipolar-guided rematch, each
+with geometric verification) -> temporal tracking of the previous epoch's features
 (proc.do_tracking) -> relative orientation -> triangulation ->
 reprojection and cheirality filter -> absolute orientation on targets ->
 space resection of each camera on its targets (proc.do_space_resection)
@@ -17,14 +18,14 @@ adjusted over the full (points x cameras) grid, after a reprojection
 filter the JAX package's n-camera path lacks. After the season,
 proc.do_homography_warping re-bases one camera's frames onto a
 reference epoch's orientation. `run()` decodes and uploads the next
-epoch's frames in a worker thread while the current epoch computes.
+epoch's frames in a worker thread while the current epoch computes;
+`watch()` polls the image folders and processes epochs as they arrive;
+`warmup()` runs one dummy match first.
 
 The config is the JAX `Pipeline`'s: a dict (or a YAML path) with the
 sections paths, proc, matching, georef, ba, quality_gates, recovery,
-dense and other. Paths the port does not run yet raise
-NotImplementedError naming what they wait for: the superglue, loftr
-and semidense matchers, `run_batched`, `run_distributed`, `watch` and
-`warmup`.
+dense and other. The multi-device seasons, `run_batched` and
+`run_distributed`, are not ported yet and raise NotImplementedError.
 
 Each processed epoch leaves its stage times in `self.stage_times`. The
 matcher, tracking, relative orientation, triangulation, BA and dense
@@ -51,9 +52,10 @@ from icepy4d_tpu_torch.device import resolve_device
 from icepy4d_tpu_torch.io.export2textfile import (
     write_cameras_to_file, write_reprojection_error_to_file)
 from icepy4d_tpu_torch.matching import (GeometricVerification,
-                                        LightGlueMatcher,
+                                        LightGlueMatcher, LoFTRMatcher,
                                         NearestNeighborMatcher, Quality,
-                                        SIFTMatcher, TileSelection,
+                                        SemiDenseMatcher, SIFTMatcher,
+                                        SuperGlueMatcher, TileSelection,
                                         track_matches)
 from icepy4d_tpu_torch.matching.matchers import _host_gray
 from icepy4d_tpu_torch.sfm import (AbsoluteOrientation, BAConfig,
@@ -68,11 +70,12 @@ logger = logging.getLogger("icepy4d_tpu_torch")
 
 MATCHERS = {
     "lightglue": LightGlueMatcher,
+    "superglue": SuperGlueMatcher,
+    "loftr": LoFTRMatcher,
+    "semidense": SemiDenseMatcher,
     "nn": NearestNeighborMatcher,
     "sift": SIFTMatcher,
 }
-# the JAX package's other matchers, which the port does not run yet
-_UNPORTED_MATCHERS = ("superglue", "loftr", "semidense")
 # what space resection catches: the numerics of a singular or
 # unconverged system (a device or launch error propagates)
 _RESECTION_ERRORS = (np.linalg.LinAlgError, torch.linalg.LinAlgError)
@@ -103,8 +106,6 @@ class Pipeline:
         proc = cfg.get("proc", {})
         m_cfg = cfg.get("matching", DotDict())
         name = str(m_cfg.get("matcher", "lightglue")).lower()
-        if name in _UNPORTED_MATCHERS:
-            raise _not_ported(f"the {name} matcher")
         if name not in MATCHERS:
             raise KeyError(f"unknown matcher {name!r}")
         self.results_dir.mkdir(parents=True, exist_ok=True)
@@ -135,11 +136,67 @@ class Pipeline:
     def run_distributed(self, *args, **kwargs):
         raise _not_ported("run_distributed (the multi-process season)")
 
-    def watch(self, *args, **kwargs):
-        raise _not_ported("watch (the polling monitor)")
+    def warmup(self) -> None:
+        """One dummy match on zeros at the season's frame shape, quality
+        and tiling, without verification: it builds the kernels, loads
+        the weights on the card and lets cuDNN pick its convolution
+        plans before the first epoch. On zeros SuperPoint finds no
+        keypoint, so the matcher's forward itself may not run."""
+        images = self.epoch_map.get_images(0)
+        im = images[self.cams[0]].value
+        dummy = np.zeros(im.shape[:2], np.uint8)
+        cfg = self.cfg.get("matching", DotDict())
+        quality = Quality[str(cfg.get("quality", "high")).upper()]
+        tile = TileSelection[str(cfg.get("tile_selection", "none")).upper()]
+        logger.info("warmup: a dummy match at %s, %s", im.shape, quality)
+        self.matcher.match(dummy, dummy, quality=quality, tile_selection=tile,
+                           grid=list(cfg.get("grid", [1, 1])),
+                           overlap=int(cfg.get("overlap", 0)),
+                           geometric_verification=GeometricVerification.NONE)
+        self.matcher._reset()
 
-    def warmup(self, *args, **kwargs):
-        raise _not_ported("warmup (the dummy match that builds programs)")
+    def watch(self, poll_interval: float = 60.0, max_polls: int | None = None,
+              stop_after: int | None = None) -> Epoches:
+        """Poll the image folders for new epochs and process each as it
+        arrives, with tracking and checkpoints as in run().
+
+        Epochs are kept by timestamp: an epoch that arrives late with an
+        earlier timestamp than one already processed shifts the indices
+        of the rebuilt map but is processed once, without a tracking
+        seed (tracking only extends the chronological tail). max_polls
+        bounds the passes over the folders and stop_after the epochs
+        processed (None: no bound); the accumulated Epoches is returned
+        when a bound is reached."""
+        prev = None
+        prev_ts = None
+        done_ts: set = set()
+        n_done = 0
+        polls = 0
+        while True:
+            for ep in range(len(self.epoch_map)):
+                ts = self.epoch_map.get_timestamp(ep)
+                if ts in done_ts:
+                    continue
+                in_order = prev_ts is None or ts > prev_ts
+                if not in_order:
+                    logger.warning("[watch] out-of-order arrival %s (already "
+                                   "past %s): processed without a tracking "
+                                   "seed", ts, prev_ts)
+                logger.info("=== [watch] new epoch %s ===", ts)
+                epoch = self.process_epoch(ep, prev if in_order else None)
+                self.epoches.add_epoch(epoch)
+                done_ts.add(ts)
+                if in_order:
+                    prev, prev_ts = epoch, ts
+                n_done += 1
+                if stop_after is not None and n_done >= stop_after:
+                    return self.epoches
+            polls += 1
+            if max_polls is not None and polls >= max_polls:
+                return self.epoches
+            time.sleep(poll_interval)
+            self.epoch_map = EpochDataMap(self.cfg.paths.image_dir,
+                                          **self._epoch_map_kwargs)
 
     # -- stage timing ---------------------------------------------------------
 
@@ -846,10 +903,12 @@ class Pipeline:
 
     def _relaxed_matcher_options(self, epoch: Epoch):
         """(options, verification threshold or None) of the recovery
-        rematch. NN and SIFT: a widened epipolar band and permissive
-        ratio and similarity thresholds, each override only ever more
-        permissive than the live matcher's; LightGlue: a lowered filter
-        threshold and a widened verification threshold."""
+        rematch. NN, SIFT and semi-dense: a widened epipolar band and
+        permissive ratio and similarity thresholds, each override only
+        ever more permissive than the live matcher's; LightGlue and
+        SuperGlue: a lowered filter threshold (which SuperGlue does not
+        read, as in the JAX package), LoFTR a lowered confidence
+        threshold, and a widened verification threshold."""
         rec = self.cfg.get("recovery", DotDict())
         m_cfg = self.cfg.get("matching", DotDict())
         opt = dict(m_cfg.get("options", {}) or {})
@@ -877,9 +936,14 @@ class Pipeline:
                         "(band %.1f px)", epoch.date_str,
                         opt["guided_band_px"])
             return opt, None
-        opt["filter_threshold"] = min(
-            float(rec.get("filter_threshold", 0.0)),
-            float(opt.get("filter_threshold", 0.1)))
+        if isinstance(self.matcher, LoFTRMatcher):
+            opt["confidence_threshold"] = min(
+                float(rec.get("confidence_threshold", 0.1)),
+                float(opt.get("confidence_threshold", 0.2)))
+        else:
+            opt["filter_threshold"] = min(
+                float(rec.get("filter_threshold", 0.0)),
+                float(opt.get("filter_threshold", 0.1)))
         relaxed_gv = float(rec.get("gv_threshold", 2.0 * self._threshold()))
         logger.info("epoch %s: recovery rematch with relaxed learned-"
                     "matcher thresholds (GV %.1f px)", epoch.date_str,

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""CPU rehearsal of `chip_smoke.py`'s season phases (7: LightGlue with
-tracking and dense; 8: the SIFT season; 10: the adaptive matcher; 11:
-the n-camera season; 12: PnP, MAGSAC and the stereo season with space
-resection and the match writer) at a reduced frame size.
+"""CPU rehearsal of `chip_smoke.py`'s season and matcher phases (7:
+LightGlue with tracking and dense; 8: the SIFT season; 10: the adaptive
+matcher; 11: the n-camera season; 12: PnP, MAGSAC and the stereo season
+with space resection and the match writer; 13: SuperGlue; 14: DISK and
+ALIKED; 15: semi-dense and LoFTR; 16: warmup, watch and the EXIF
+scanner) at a reduced frame size.
 
-    python3 scripts/rehearse_seasons_cpu.py [--phase 7|8|10|11|12|both|all]
+    python3 scripts/rehearse_seasons_cpu.py \
+        [--phase 7|8|10|11|12|13|14|15|16|both|all]
 
 Runs every stage of the phases on the CPU on 1000x1504 frames (f = 1500
 px, 5 m baseline, 1024 keypoints a tile), in a few minutes ("both" is
@@ -32,8 +35,9 @@ sys.path.insert(0, str(REPO / "tests"))
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("7", "8", "10", "11", "12", "both",
-                                        "all"), default="both")
+    ap.add_argument("--phase", choices=("7", "8", "10", "11", "12", "13",
+                                        "14", "15", "16", "both", "all"),
+                    default="both")
     args = ap.parse_args()
 
     torch.cuda.synchronize = lambda *a, **k: None
@@ -47,6 +51,8 @@ def main() -> None:
     cs.SEASON_F = 1500.0
     cs.SEASON_KEYPOINTS = 1024
     cs.SEASON_BASELINE = 5.0    # at 4 m the faces' disparities collapse
+    cs.SEMIDENSE_CROP = (504, 752)
+    cs.cuda_ms = lambda fn, reps: (fn(), 0.0)[1]   # no timing on the CPU
     pipeline.resolve_device = lambda device=None: torch.device("cpu")
     counts = {"nms": 0, "attention": 0, "sweep": 0}
 
@@ -73,7 +79,8 @@ def main() -> None:
         return dict(counts)
 
     dev = torch.device("cpu")
-    want = {"both": ("7", "8"), "all": ("7", "8", "10", "11", "12")}.get(
+    want = {"both": ("7", "8"),
+            "all": ("7", "8", "10", "11", "12", "13", "14", "15", "16")}.get(
         args.phase, (args.phase,))
     with tempfile.TemporaryDirectory() as tmp:
         scene, cfg = cs.season_config(dev, tmp, n_epochs=3)
@@ -91,14 +98,14 @@ def main() -> None:
         if "8" in want:
             phases.append(("8", lambda: cs.sift_season_path(
                 dev, reset, read, scene, cfg)))
+        from icepy4d_tpu_torch.matching import (GeometricVerification,
+                                                Quality, TileSelection)
+        img0, img1 = cs.shifted_pair()
+        call = dict(quality=Quality.HIGH,
+                    tile_selection=TileSelection.EXHAUSTIVE,
+                    grid=[2, 2], overlap=50, threshold=1.0,
+                    geometric_verification=GeometricVerification.PYDEGENSAC)
         if "10" in want:
-            from icepy4d_tpu_torch.matching import (GeometricVerification,
-                                                    Quality, TileSelection)
-            img0, img1 = cs.shifted_pair()
-            call = dict(quality=Quality.HIGH,
-                        tile_selection=TileSelection.EXHAUSTIVE,
-                        grid=[2, 2], overlap=50, threshold=1.0,
-                        geometric_verification=GeometricVerification.PYDEGENSAC)
             phases.append(("10", lambda: cs.adaptive_path(
                 dev, reset, read, img0, img1, call, 2, 0.0,
                 max_keypoints=cs.SEASON_KEYPOINTS)))
@@ -113,6 +120,23 @@ def main() -> None:
             phases.append(("12", lambda: (
                 cs.pnp_check(dev),
                 cs.resection_season_path(cfg, n_epochs=2))))
+        if "13" in want:
+            phases.append(("13", lambda: cs.superglue_path(
+                dev, reset, read, img0, img1, call, 2,
+                max_keypoints=cs.SEASON_KEYPOINTS)))
+        if "14" in want:
+            phases.append(("14", lambda: cs.extractor_path(
+                dev, reset, read, img0, img1, call,
+                max_keypoints=cs.SEASON_KEYPOINTS)))
+        if "15" in want:
+            phases.append(("15", lambda: cs.loftr_semidense_path(
+                dev, reset, read, img0, img1)))
+        if "16" in want:
+            untracked = {"nms": 2, "attention": 36, "sweep": 0}
+            phases.append(("16", lambda: (
+                cs.season_tools_path(reset, read, cfg, [
+                    untracked, dict(untracked, attention=72)], 0.0),
+                cs.exif_check(tmp))))
         for name, run in phases:
             t0 = time.perf_counter()
             try:

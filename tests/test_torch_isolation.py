@@ -151,3 +151,62 @@ def test_slice_entry_points_raise_without_cuda(no_cuda, tmp_path):
                  lambda: warp_image_to_reference(img, cam, cam)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+def test_reads_no_file_of_the_jax_package():
+    """Importing every module of the port and using its data files (the
+    sensor database, the bundled weights, the EXIF scanner's source)
+    opens no file under icepy4d_tpu/."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    code = (
+        "import sys, os\n"
+        "opened = []\n"
+        "def hook(event, args):\n"
+        "    if event == 'open' and isinstance(args[0], (str, bytes, "
+        "os.PathLike)):\n"
+        "        opened.append(os.path.abspath(os.fsdecode(args[0])))\n"
+        "sys.addaudithook(hook)\n"
+        "import importlib\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from icepy4d_tpu_torch.core import SensorWidthDatabase\n"
+        "SensorWidthDatabase().lookup('Canon', 'Canon EOS 6D')\n"
+        "from icepy4d_tpu_torch.matching import NearestNeighborMatcher\n"
+        "NearestNeighborMatcher({'extractor': 'aliked'}, device='cpu')\n"
+        "from icepy4d_tpu_torch.native import native_available\n"
+        "native_available()\n"
+        f"jax_pkg = os.path.join({str(REPO)!r}, 'icepy4d_tpu') + os.sep\n"
+        "bad = sorted({p for p in opened if p.startswith(jax_pkg)})\n"
+        "print('ok' if not bad else bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", \
+        (out.stdout, out.stderr)
+
+
+def test_matchers_and_tools_raise_without_cuda(no_cuda):
+    """The eighth slice's entry points (the other matchers, extractors
+    and models, the OC template matcher, the least-squares Helmert, the
+    padded feature structs) run on the card by default."""
+    from icepy4d_tpu_torch.core import FeatureSet, PointSet
+    from icepy4d_tpu_torch.least_squares import (
+        estimate_similarity_least_squares)
+    from icepy4d_tpu_torch.matching import (LightGlueMatcher, LoFTRMatcher,
+                                            NearestNeighborMatcher,
+                                            SemiDenseMatcher,
+                                            SuperGlueMatcher, TemplateMatch)
+    from icepy4d_tpu_torch.models import ALIKED, DISK, LoFTR, SuperGlue
+
+    img = np.zeros((16, 16), np.float32)
+    x = np.random.default_rng(0).uniform(0, 10, (6, 3))
+    for make in (SuperGlueMatcher, LoFTRMatcher, SemiDenseMatcher,
+                 lambda: LightGlueMatcher({"extractor": "aliked"}),
+                 lambda: NearestNeighborMatcher({"extractor": "disk"}),
+                 SuperGlue, LoFTR, DISK, ALIKED,
+                 lambda: TemplateMatch(img, img, [[8.0, 8.0]]),
+                 lambda: estimate_similarity_least_squares(x, x),
+                 lambda: FeatureSet.empty(8), lambda: PointSet.empty(8)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()

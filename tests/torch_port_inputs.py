@@ -469,3 +469,51 @@ class StereoSeason:
             "ba": {"camera_location_accuracy": 0.02},
             "other": {"pydegensac_threshold": 1.0},
         }
+
+
+def exif_jpeg(path, image: np.ndarray, datetime_original: str,
+              make: str = "Canon", model: str = "Canon EOS 6D",
+              focal_mm: float = 24.0) -> None:
+    """Write `image` as a JPEG whose APP1 segment carries an EXIF block
+    built here byte by byte (little-endian TIFF): IFD0 with Make, Model
+    and the Exif sub-IFD offset; the sub-IFD with DateTimeOriginal
+    ("YYYY:MM:DD HH:MM:SS") and FocalLength (a RATIONAL, 1/1000 mm)."""
+    import struct
+
+    def ascii_(s: str) -> bytes:
+        return s.encode("ascii") + b"\0"
+
+    strings0 = [(0x010F, ascii_(make)), (0x0110, ascii_(model))]
+    n0, n1 = len(strings0) + 1, 2
+    ifd0_at = 8
+    ifd1_at = ifd0_at + 2 + 12 * n0 + 4
+    data_at = ifd1_at + 2 + 12 * n1 + 4
+    blob = b""
+
+    def put(b: bytes) -> int:
+        nonlocal blob
+        at = data_at + len(blob)
+        blob += b + (b"\0" if len(b) % 2 else b"")
+        return at
+
+    def entry(tag, typ, count, value: bytes) -> bytes:
+        if len(value) <= 4:
+            return struct.pack("<HHL", tag, typ, count) + value.ljust(4, b"\0")
+        return struct.pack("<HHLL", tag, typ, count, put(value))
+
+    ifd0 = [entry(t, 2, len(v), v) for t, v in strings0]
+    ifd0.append(entry(0x8769, 4, 1, struct.pack("<L", ifd1_at)))
+    dt = ascii_(datetime_original)
+    ifd1 = [entry(0x9003, 2, len(dt), dt),
+            entry(0x920A, 5, 1, struct.pack("<LL", int(round(
+                focal_mm * 1000)), 1000))]
+    tiff = (b"II*\0" + struct.pack("<L", ifd0_at)
+            + struct.pack("<H", n0) + b"".join(ifd0) + b"\0\0\0\0"
+            + struct.pack("<H", n1) + b"".join(ifd1) + b"\0\0\0\0" + blob)
+    app1 = b"Exif\0\0" + tiff
+    ok, enc = cv2.imencode(".jpg", image)
+    if not ok:
+        raise ValueError("JPEG encoding failed")
+    jpg = enc.tobytes()
+    seg = b"\xff\xe1" + struct.pack(">H", len(app1) + 2) + app1
+    Path(path).write_bytes(jpg[:2] + seg + jpg[2:])

@@ -166,13 +166,41 @@ anything in it fails:
    epochs; the first epoch's time after warmup and phase 7's first
    epoch (no warmup) printed; the native EXIF scanner, built with g++
    on this machine, against the Python reader on JPEGs whose EXIF
-   block the script writes byte by byte.
+   block the script writes byte by byte;
+17. products: the 4D products on phase 7's full-size outputs (its three
+   dense clouds of 14.6-14.7 M points, the frames, the target tables
+   and the Epoches that Pipeline.run() returned), each step run cold
+   then warm with its time printed beside the card's name and power
+   limit: DEMs of difference of consecutive clouds along y at 0.1 m
+   (|mean dz| and net volume a m^2, the median dz and the matching share
+   gated), the first DoD's DSM against the true depth of the seen face
+   on cells 1 m from any face or occlusion edge, orthophotos of both
+   frames of epoch 0 on a z-up DSM in a local frame (a Rototranslation
+   x' = X, y' = Z, z' = -Y) whose NCC on the stable faces is gated,
+   voxels at 0.25 m and binned statistics at 0.5 m whose counts equal
+   the in-bounds points exactly, geometric features and detect_border
+   (k = 32) on a PRODUCTS_CROP polyline crop of ~300 k points (median
+   planarity and verticality on its faces gated; the card's kNN equal
+   to the CPU's on a 20 k subset wherever the k-th and (k+1)-th squared
+   distances are more than 8 float32 steps apart), Poisson at depth 8
+   on the centres of the voxels holding a face (median vertex distance
+   to the faces within a voxel), TrackTargets from epoch 0's first
+   frame into epochs 1 and 2 at PRODUCTS_TARGETS (every target within
+   0.2 px of the pixel its template sits on; the defaults' SNRs are
+   printed), the tracked points' time series (median displacement of
+   the stable faces' tracks gated, the tongue's printed), and epoch 0's
+   COLMAP binary model and database, Bundler .out and CALGE files read
+   back equal. PRODUCT_GATES holds the gates. Products launch no kernel:
+   the counts are set to 0 before the phase and must be 0 after it. It
+   needs pandas, not matplotlib, h5py or rasterio: the plots, the h5
+   export and the GeoTIFF are not run on the card.
 
 Phase 10 runs after phase 5 on its pair and phases 13-15 after it,
-phase 12 after phase 8 on phase 7's frames, phase 16 after it and
-phase 11 after those, all before the timing of phase 9; their results
-are in the same JSON line. The kernels line's launches are those of
-the matcher paths of phases 4, 13 and 14 (the sweep's of phase 6).
+phase 12 after phase 8 on phase 7's frames, phase 16 after it, phase
+17 after it on phase 7's outputs, and phase 11 after those, all before
+the timing of phase 9; their results are in the same JSON line. The
+kernels line's launches are those of the matcher paths of phases 4, 13
+and 14 (the sweep's of phase 6).
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -602,10 +630,10 @@ def track_motion(scene, prev, cur, cam: str) -> dict:
 
 
 def season_path(dev, reset_counts, read_counts, scene, base_cfg: dict,
-                expected: list) -> dict:
+                expected: list):
     """Phase 7: the port's Pipeline with tracking and dense on; each
     epoch's launch counts must equal `expected[epoch]`. Returns what the
-    JSON line reports."""
+    JSON line reports and the Epoches (phase 17 reads them)."""
     import copy
     import csv
 
@@ -675,7 +703,7 @@ def season_path(dev, reset_counts, read_counts, scene, base_cfg: dict,
             n != 4 for n in sinks.values()):
         raise AssertionError(f"{len(epochs)} epochs, {n_ckpt} checkpoints, "
                              f"{n_ply} dense PLYs, sink rows {sinks}")
-    return out
+    return out, pipe.epoches
 
 
 def check_epoch(st: dict, gates: dict) -> None:
@@ -1601,6 +1629,450 @@ def exif_check(root) -> dict:
     return out
 
 
+# -- phase 17: the 4D products ------------------------------------------------
+
+PRODUCTS_DSM_STEP = 0.1        # m, the DEM of difference's grid
+PRODUCTS_VOXEL = 0.25          # m
+PRODUCTS_K = 32                # the border features' neighbours
+# Scene (X, Z) corners (m) of the border-feature crop: the tongue's left
+# end (X = -30) and the rock wall beside it, above the boulders; about
+# 300 k points of a full-size dense cloud (the whole cloud's brute-force
+# kNN would be 2e14 pairs).
+PRODUCTS_CROP = ((-37.0, 1.0), (-25.0, 1.0), (-25.0, 14.0), (-37.0, 14.0))
+PRODUCTS_KNN_SUBSET = 20000    # points of the crop held card against CPU
+PRODUCTS_MIN_VOXEL_POINTS = 10  # a face's 0.25 m voxel holds ~140 points,
+                                # a scattered outlier's 1-2
+# OC on the season's band-limited texture peaks low: at TrackTargets'
+# defaults (32 px template, 128 px search, SNR > 7) every target fails
+# (SNR 2.9-4.1, also on a frame tracked into itself); no template from
+# 16 to 256 px reaches 7 on all five. 96 / 160 px tracks all five.
+PRODUCTS_TARGETS = {"template_width": 96, "search_width": 160,
+                    "snr_threshold": 3.5}
+# Gates of phase 17, about 3x off the first H100 readings (20% under
+# them for planarity and verticality): DEMs of difference |mean dz| and
+# |net| a m^2 0.81-0.85 m (the cell means carry the clouds' far outliers:
+# each epoch's DSM lies 2.7-2.9 m behind the faces in the mean over
+# cells, 0-2 cm in the median), median dz 1.0-1.1 cm, matching
+# 83.4-84.4%; DSM 0.064 m from the true faces (median); orthophoto NCC
+# 0.932; planarity 0.499, verticality 0.678 (an isotropic normal reads
+# 0.5); Poisson vertices 0.089 m from the faces (median; the gate is
+# one voxel); targets at SNR >= 4.17, within 0.061 px; stable tracks
+# 0.019 m.
+PRODUCT_GATES = {"dod_mean_dz_m": 2.5, "dod_net_m3_per_m2": 2.5,
+                 "dod_matching_pct": 50.0, "dod_median_dz_m": 0.035,
+                 "dsm_median_err_m": 0.2, "ortho_ncc": 0.8,
+                 "planarity": 0.4, "verticality": 0.55,
+                 "poisson_median_m": PRODUCTS_VOXEL,
+                 "target_snr": PRODUCTS_TARGETS["snr_threshold"],
+                 "target_px": 0.2, "stable_track_m": 0.06}
+
+
+def seen_face(scene, X, Z, cams=(0, 1)):
+    """Per scene column (X, Z) (tensors): the index of the one face whose
+    points there every camera in `cams` sees (the dense cloud keeps
+    points both views see), -1 where no face or several are seen."""
+    n_seen = torch.zeros(X.shape, dtype=torch.int64, device=X.device)
+    face = torch.full(X.shape, -1, dtype=torch.int64, device=X.device)
+    for k, Yk in enumerate(scene.layers):
+        vis = scene._mask(k, X, Z)
+        for c in cams:
+            C = scene.centers[c]
+            for j in range(k + 1, len(scene.layers)):
+                s = (scene.layers[j] - C[1]) / (Yk - C[1])
+                vis = vis & ~scene._mask(j, C[0] + s * (X - C[0]),
+                                         C[2] + s * (Z - C[2]))
+        n_seen += vis
+        face = torch.where(vis, k, face)
+    return torch.where(n_seen == 1, face, -1)
+
+
+def clean_face(scene, X, Z, margin: float = 1.0) -> np.ndarray:
+    """`seen_face` of columns whose neighbours `margin` m away in x, z
+    and the diagonals see the same face; -1 elsewhere."""
+    face = seen_face(scene, X, Z)
+    for dx in (-margin, 0.0, margin):
+        for dz in (-margin, 0.0, margin):
+            if dx or dz:
+                face = torch.where(seen_face(scene, X + dx, Z + dz) == face,
+                                   face, -1)
+    return face.cpu().numpy()
+
+
+def timed(label: str, fn, times: dict):
+    """Run `fn` twice (cold, then warm), synchronising the card around
+    each; log and record both times; return the warm run's result."""
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    times[label] = {"cold_s": secs[0], "warm_s": secs[1]}
+    log(f"  {label}: warm {secs[1]:.3f} s (cold {secs[0]:.3f})")
+    return out
+
+
+def f32_bin_count(coords: np.ndarray, lo: np.ndarray, step, shape) -> int:
+    """Finite points whose float32 cell index floor((c - lo) / step) lies
+    in the grid: what a scatter binning must count."""
+    c = np.asarray(coords, np.float32)
+    idx = np.floor((c - np.asarray(lo, np.float32))
+                   / np.asarray(step, np.float32))
+    ok = np.isfinite(c).all(1) & (idx >= 0).all(1) & (idx < shape).all(1)
+    return int(ok.sum())
+
+
+def products_path(dev, reset_counts, read_counts, scene, epoches,
+                  root) -> dict:
+    """Phase 17: the 4D products on phase 7's full-size outputs (its
+    three dense clouds, frames, target tables and Epoches). Products
+    launch no kernel: the counts are set to 0 before and must still be 0
+    after. Returns what the JSON line reports."""
+    import csv
+
+    import cv2
+    from scipy.spatial import cKDTree
+
+    from icepy4d_tpu_torch.core import Features
+    from icepy4d_tpu_torch.io import (COLMAPDatabase,
+                                      export_keypoints_for_calge,
+                                      export_points3D_for_calge,
+                                      export_solution_to_colmap_binary,
+                                      export_to_colmap_database,
+                                      read_bundler_out, read_colmap_model,
+                                      write_bundler_out)
+    from icepy4d_tpu_torch.post_processing import (
+        DemOfDifference, detect_border, filter_pcd_by_polyline,
+        geometric_features, poisson_reconstruct, voxelize)
+    from icepy4d_tpu_torch.post_processing.analysis import _knn_indices
+    from icepy4d_tpu_torch.utils import (Rototranslation, TrackTargets,
+                                         binned_statistic, build_dsm,
+                                         compute_displacements,
+                                         generate_orthophoto,
+                                         tracked_points_time_series,
+                                         tracked_time_series_to_df)
+    from torch_port_inputs import SEASON_ORIGIN
+
+    root = Path(root)
+    res = root / "res_lightglue"
+    plys = sorted(res.rglob("dense_*.ply"))
+    ids = sorted(epoches._epochs)
+    e0 = epoches[ids[0]]
+    cams = list(e0.cameras)
+    pts0 = e0.point_cloud.points
+    times, out, fails = {}, {}, []
+
+    def gate(name, ok, value):
+        out.setdefault("gates", {})[name] = value
+        if not ok:
+            fails.append(f"{name} = {value}")
+
+    log(f"products on {len(plys)} dense clouds of "
+        f"{[len(epoches[i].point_cloud) for i in ids]} points "
+        f"({card_line()}):")
+    torch.cuda.synchronize()
+    reset_counts()
+
+    # DEM of difference, the cameras looking along +Y: grids over (x, z)
+    def dod(a, b):
+        d = DemOfDifference(a, b, dsm_step=PRODUCTS_DSM_STEP, direction="y",
+                            device=dev)
+        d.compute_volume()
+        return d
+
+    dods = [timed(f"DEM of difference {a.stem} -> {b.stem}",
+                  lambda a=a, b=b: dod(a, b), times)
+            for a, b in zip(plys, plys[1:])]
+    for d in dods:
+        d.write_result_row(root / "volumes.csv")
+    with open(root / "volumes.csv") as f:
+        rows = list(csv.DictReader(f))
+    out["dod"] = [dict(vars(d.report), median_dz=float(np.nanmedian(d.dz)))
+                  for d in dods]
+    for d, rd in zip(dods, out["dod"]):
+        r = d.report
+        log(f"    {d.names[0]} -> {d.names[1]}: {rd}")
+        gate("dod_median_dz_m", abs(rd["median_dz"])
+             <= PRODUCT_GATES["dod_median_dz_m"], rd["median_dz"])
+        gate("dod_mean_dz_m", abs(r.mean_dz) <= PRODUCT_GATES["dod_mean_dz_m"],
+             r.mean_dz)
+        gate("dod_net_m3_per_m2",
+             abs(r.net) / r.area <= PRODUCT_GATES["dod_net_m3_per_m2"],
+             r.net / r.area)
+        gate("dod_matching_pct",
+             r.matching_percent >= PRODUCT_GATES["dod_matching_pct"],
+             r.matching_percent)
+    if len(rows) != 2 or [r["pcd0"] for r in rows] != \
+            [d.names[0] for d in dods]:
+        raise AssertionError(f"volume rows {rows}")
+
+    # each epoch's DSM (of the DoDs) against the true depth of the face
+    # its cells see, on cells 1 m from any face or occlusion edge
+    def dsm_error(dsm):                # rows: world z, columns: world x
+        Zc, Xc = torch.meshgrid(
+            torch.as_tensor(dsm.yy - SEASON_ORIGIN[2], device=dev),
+            torch.as_tensor(dsm.xx - SEASON_ORIGIN[0], device=dev),
+            indexing="ij")
+        face = clean_face(scene, Xc, Zc)
+        cells = (face >= 0) & (dsm.count > 0)
+        return dsm.z[cells] - (SEASON_ORIGIN[1]
+                               + np.asarray(scene.layers)[face[cells]])
+
+    err = timed("DSM against the true faces", lambda: dsm_error(
+        dods[0].dsm0), times)
+    out["dsm"] = {"cells": len(err), "median_err_m": float(np.median(
+        np.abs(err))), "p90_err_m": float(np.percentile(np.abs(err), 90))}
+    for i, m in enumerate((dods[0].dsm0, dods[0].dsm1, dods[1].dsm1)):
+        e = dsm_error(m)
+        out["dsm"][f"epoch{i}_signed_mean_median_m"] = (
+            float(e.mean()), float(np.median(e)))
+    log(f"    DSM vs truth: {out['dsm']}")
+    gate("dsm_median_err_m",
+         out["dsm"]["median_err_m"] <= PRODUCT_GATES["dsm_median_err_m"],
+         out["dsm"]["median_err_m"])
+
+    # orthophotos of both frames of epoch 0 on a z-up DSM: a local frame
+    # x' = X, y' = Z, z' = -Y about the scene origin (faces' normal +z)
+    R = np.array([[1.0, 0, 0], [0, 0, 1], [0, -1, 0]])
+    T = np.eye(4)
+    T[:3, :3] = R
+    T[:3, 3] = -R @ SEASON_ORIGIN
+    loc = Rototranslation(T)
+
+    def ortho():
+        d = build_dsm(loc.transform(pts0), PRODUCTS_DSM_STEP, device=dev)
+        views = []
+        for c in cams[:2]:
+            cam = e0.cameras[c]
+            cam_l = cam.update_extrinsics(
+                np.asarray(cam.extrinsics, np.float64) @ loc.T_inv)
+            img = cv2.imread(str(e0.images[c].path), cv2.IMREAD_GRAYSCALE)
+            views.append(generate_orthophoto(img, d, cam_l, device=dev))
+        return d, views
+
+    dsm_l, views = timed("orthophotos", ortho, times)
+    Zl, Xl = torch.meshgrid(torch.as_tensor(dsm_l.yy, device=dev),
+                            torch.as_tensor(dsm_l.xx, device=dev),
+                            indexing="ij")
+    face_l = clean_face(scene, Xl, Zl)
+    sel = ((face_l == 0) | (face_l == 2)) & (dsm_l.count > 0) \
+        & views[0][1] & views[1][1]
+    a, b = views[0][0][..., 0][sel], views[1][0][..., 0][sel]
+    ncc = float(np.corrcoef(a, b)[0, 1])
+    out["ortho"] = {"cells": int(sel.sum()), "ncc": ncc}
+    log(f"    orthophotos of {cams[:2]} on stable faces: {out['ortho']}")
+    gate("ortho_ncc", ncc >= PRODUCT_GATES["ortho_ncc"], ncc)
+
+    # voxels and binned statistics of epoch 0's cloud
+    cols0 = e0.point_cloud.colors
+    vox = timed("voxelize", lambda: voxelize(pts0, cols0, PRODUCTS_VOXEL,
+                                             device=dev), times)
+    finite = pts0[np.isfinite(pts0).all(1)]
+    bb_max = np.ceil(finite.max(0)).astype(np.float32)
+    shape = np.maximum(np.ceil((bb_max - vox.origin) / PRODUCTS_VOXEL), 1)
+    want = f32_bin_count(pts0, vox.origin, PRODUCTS_VOXEL, shape)
+    binned = timed("binned statistic", lambda: binned_statistic(
+        pts0[:, [0, 2]], pts0[:, 1], 0.5, device=dev), times)
+    bshape = np.asarray(binned["count"].shape)
+    bmin = np.asarray([binned["edges"][0][0], binned["edges"][1][0]])
+    bwant = f32_bin_count(pts0[:, [0, 2]], bmin, 0.5, bshape)
+    filled = binned["count"] > 0
+    out["voxels"] = {"voxels": len(vox.counts), "counted": int(
+        vox.counts.sum()), "in_bounds": want, "binned_cells": int(
+        filled.sum()), "binned_counted": int(binned["count"].sum()),
+        "binned_in_bounds": bwant}
+    log(f"    voxels and binned statistics: {out['voxels']}")
+    if int(vox.counts.sum()) != want or int(binned["count"].sum()) != bwant \
+            or not (np.nanmin(binned["mean"][filled]) >= np.nanmin(pts0[:, 1])
+                    and np.nanmax(binned["mean"][filled])
+                    <= np.nanmax(pts0[:, 1])):
+        raise AssertionError(f"voxel / binned counts {out['voxels']}")
+
+    # border features on a polyline crop
+    poly = np.asarray(PRODUCTS_CROP) + SEASON_ORIGIN[[0, 2]]
+    crop = pts0[filter_pcd_by_polyline(pts0, poly, dir="x-z")]
+    feats = timed(f"geometric features of {len(crop)} points",
+                  lambda: geometric_features(crop, k=PRODUCTS_K, device=dev),
+                  times)
+    border = timed("detect_border", lambda: detect_border(
+        crop, k=PRODUCTS_K, device=dev), times)
+    cf = clean_face(scene, torch.as_tensor(crop[:, 0] - SEASON_ORIGIN[0],
+                                           dtype=torch.float64, device=dev),
+                    torch.as_tensor(crop[:, 2] - SEASON_ORIGIN[2],
+                                    dtype=torch.float64, device=dev))
+    planar = cf >= 0
+    out["border"] = {
+        "crop_points": len(crop), "planar_points": int(planar.sum()),
+        "faces": {int(k): int((cf == k).sum()) for k in np.unique(cf)},
+        "median_planarity": float(np.median(feats["planarity"][planar])),
+        "median_verticality": float(np.median(feats["verticality"][planar])),
+        "median_linearity": float(np.median(feats["linearity"][planar])),
+        "border_points": int(border.sum())}
+    rng = np.random.default_rng(0)
+    sub = crop[rng.choice(len(crop), min(PRODUCTS_KNN_SUBSET, len(crop)),
+                          replace=False)]
+    card_nbr = _knn_indices(torch.as_tensor(sub, device=dev),
+                            PRODUCTS_K).cpu().numpy()
+    cpu_nbr = _knn_indices(torch.as_tensor(sub), PRODUCTS_K).numpy()
+    c64 = sub.astype(np.float64) - sub.astype(np.float64).mean(0)
+    d, _ = cKDTree(c64).query(c64, PRODUCTS_K + 1)
+    # rows the float32 expansion can order: the k-th and (k+1)-th squared
+    # distances more than 8 float32 steps of the row's 2 |a|^2 apart
+    tie = 8 * np.spacing(np.float32(2 * (c64 ** 2).sum(1)))
+    clear = d[:, PRODUCTS_K] ** 2 - d[:, PRODUCTS_K - 1] ** 2 > tie
+    same = np.array([set(x) == set(y) for x, y in zip(card_nbr, cpu_nbr)])
+    out["border"]["knn_card_vs_cpu"] = {
+        "rows": len(sub), "clear_rows": int(clear.sum()),
+        "equal_clear": int(same[clear].sum()), "equal_all": int(same.sum()),
+        "median_tie_m2": float(np.median(tie))}
+    log(f"    border features: {out['border']}")
+    gate("planarity", out["border"]["median_planarity"]
+         >= PRODUCT_GATES["planarity"], out["border"]["median_planarity"])
+    gate("verticality", out["border"]["median_verticality"]
+         >= PRODUCT_GATES["verticality"], out["border"]["median_verticality"])
+    if not same[clear].all():
+        raise AssertionError(f"kNN card vs CPU: {out['border']}")
+
+    # Poisson on the centres of the voxels that hold a face (the clouds'
+    # scattered outliers fill voxels of 1-2 points), normals toward
+    # camera 0
+    C0 = np.asarray(e0.cameras[cams[0]].C, np.float64).ravel()
+    centers = vox.centers[vox.counts >= PRODUCTS_MIN_VOXEL_POINTS]
+    verts, faces, _ = timed("Poisson depth 8", lambda: poisson_reconstruct(
+        centers, depth=8, viewpoint=C0, device=dev), times)
+    vd = scene.surface_distance(verts)
+    out["poisson"] = {"points": len(centers), "vertices": len(verts),
+                      "faces": len(faces),
+                      "median_surface_m": float(np.median(vd)),
+                      "p90_surface_m": float(np.percentile(vd, 90))}
+    log(f"    Poisson: {out['poisson']}")
+    gate("poisson_median_m", out["poisson"]["median_surface_m"]
+         <= PRODUCT_GATES["poisson_median_m"],
+         out["poisson"]["median_surface_m"])
+
+    # the targets from epoch 0's first frame into epochs 1 and 2
+    master = e0.images[cams[0]]
+    with open(root / "targets" / f"{Path(master.name).stem}.csv") as f:
+        table = list(csv.DictReader(f))
+    labels = [r["label"] for r in table]
+    xy0 = np.array([[float(r["x"]), float(r["y"])] for r in table])
+    slaves = [epoches[i].images[cams[0]] for i in ids[1:]]
+    tracked = TrackTargets(master.path, slaves, xy0,
+                           out_dir=root / "tracked_targets_default",
+                           target_names=labels, device=dev).track()
+    out["targets_default_config"] = {k: v["snr"].tolist()
+                                     for k, v in tracked.items()}
+    log(f"    targets at TrackTargets' defaults, SNR: "
+        f"{out['targets_default_config']}")
+    tracked = timed("target tracking", lambda: TrackTargets(
+        master.path, slaves, xy0, out_dir=root / "tracked_targets",
+        target_names=labels, device=dev, **PRODUCTS_TARGETS).track(), times)
+    out["targets"] = {}
+    for stem, r in tracked.items():
+        px = np.linalg.norm(r["xy"] - np.round(xy0), axis=1)
+        out["targets"][stem] = {"snr": r["snr"].tolist(),
+                                "px": px.tolist(), "ok": r["ok"].tolist()}
+        gate(f"target_snr_{stem}", bool(np.all(
+            r["snr"] >= PRODUCT_GATES["target_snr"])), r["snr"].tolist())
+        gate(f"target_px_{stem}", bool(r["ok"].all() and np.all(
+            px <= PRODUCT_GATES["target_px"])), px.tolist())
+    log(f"    targets: {out['targets']}")
+
+    # the tracked points' time series
+    series = timed("time series", lambda: tracked_points_time_series(
+        epoches), times)
+    disp = compute_displacements(series)
+    n_rows = len(tracked_time_series_to_df(series, epoches))
+    first = np.array([series[t][min(series[t])] for t in disp["track_id"]])
+    fi = scene.face_index(first)
+    stable = disp["displacement"].to_numpy()[(fi == 0) | (fi == 2)]
+    tongue = disp["displacement"].to_numpy()[fi == 1]
+    out["time_series"] = {
+        "tracks": len(disp), "rows": n_rows, "stable": len(stable),
+        "tongue": len(tongue),
+        "stable_median_m": float(np.median(stable)) if len(stable) else None,
+        "tongue_median_m": float(np.median(tongue)) if len(tongue) else None}
+    log(f"    time series: {out['time_series']}")
+    gate("stable_track_m", len(stable) > 0 and np.median(stable)
+         <= PRODUCT_GATES["stable_track_m"],
+         out["time_series"]["stable_median_m"])
+
+    # exports of epoch 0, read back
+    ex = root / "exports"
+    c0, c1 = cams[:2]
+    kp = {c: e0.features[c].kpts_to_numpy() for c in (c0, c1)}
+    n = min(len(kp[c0]), len(kp[c1]))
+    matches = {(c0, c1): np.stack([np.arange(n), np.arange(n)], -1)}
+    pids = e0.points.track_ids_to_numpy()
+    aligned = {}
+    for c in (c0, c1):
+        tid = e0.features[c].track_ids_to_numpy()
+        row = {int(t): i for i, t in enumerate(tid)}
+        aligned[c] = Features.from_numpy(kp[c][[row[int(t)] for t in pids]])
+
+    def export():
+        export_solution_to_colmap_binary(ex / "colmap", e0.images,
+                                         e0.cameras, e0.points)
+        export_to_colmap_database(ex / "colmap.db", e0.images, e0.cameras,
+                                  e0.features, matches)
+        write_bundler_out(ex / "bundler", "epoch0", e0.images, e0.cameras,
+                          aligned, e0.points)
+        export_keypoints_for_calge(ex / "calge_kp.txt", e0.features,
+                                   e0.images)
+        export_points3D_for_calge(ex / "calge_p3.txt", e0.points)
+
+    timed("exports", export, times)
+    xyz = e0.points.to_numpy()
+    cam_m, img_m, pts_m = read_colmap_model(ex / "colmap")
+    got = np.array([pts_m[int(t)].xyz for t in pids])
+    ok_colmap = (len(cam_m) == 2 and np.array_equal(got, xyz.astype(
+        np.float64)) and all(np.allclose(img_m[i + 1].qvec2rotmat(),
+                                         e0.cameras[c].R, atol=1e-6)
+                             for i, c in enumerate(cams)))
+    db = COLMAPDatabase.connect(ex / "colmap.db")
+    try:
+        ok_db = (np.array_equal(db.read_keypoints(1)[:, :2], kp[c0])
+                 and np.array_equal(db.read_matches(1, 2), matches[(c0, c1)]))
+    finally:
+        db.close()
+    _, bxyz, bobs = read_bundler_out(ex / "bundler" / "epoch0.out")
+    ok_bundler = (np.array_equal(bxyz.astype(np.float32), xyz)
+                  and len(bobs) == len(xyz))
+    # CALGE's fixed-width rows: a header, then per camera its image name,
+    # one "id x y" row a keypoint and -99; "id X Y Z" rows and -99
+    lines = (ex / "calge_kp.txt").read_text().splitlines()[1:]
+    ends = [i for i, ln in enumerate(lines) if ln == "-99"]
+    starts = [0] + [e + 1 for e in ends[:-1]]
+    calge_kp = [np.array([ln.split()[1:] for ln in lines[a + 1:e]], float)
+                for a, e in zip(starts, ends)]
+    p3 = np.array([ln.split()[1:] for ln in
+                   (ex / "calge_p3.txt").read_text().splitlines()
+                   if ln != "-99"], float)
+    # written with one and four decimals
+    ok_calge = (len(calge_kp) == len(e0.features)
+                and all(np.abs(a - e0.features[c].kpts_to_numpy()).max()
+                        <= 0.05 + 1e-6 for a, c in zip(calge_kp, e0.features))
+                and np.abs(p3 - xyz).max() <= 5e-5 + 1e-9)
+    out["exports"] = {"colmap": bool(ok_colmap), "database": bool(ok_db),
+                      "bundler": bool(ok_bundler), "calge": bool(ok_calge),
+                      "points": len(xyz)}
+    log(f"    exports read back: {out['exports']}")
+    if not (ok_colmap and ok_db and ok_bundler and ok_calge):
+        raise AssertionError(f"exports {out['exports']}")
+
+    torch.cuda.synchronize()
+    out["launches"] = read_counts()
+    out["times"] = times
+    log(f"  products launches {out['launches']}; stage times on {card_line()}"
+        f": " + ", ".join(f"{k} {v['warm_s']:.3f}" for k, v in times.items()))
+    if any(out["launches"].values()):
+        raise AssertionError(f"products launched kernels: {out['launches']}")
+    if fails:
+        raise AssertionError("products gates failed: " + "; ".join(fails))
+    return out
+
+
 def main() -> None:
     # -- 1. card ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1912,8 +2384,9 @@ def main() -> None:
         log(f"season frames written in {time.perf_counter() - t0:.1f} s")
         first = dict(launches, sweep=2)
         tracked = dict(first, attention=first["attention"] + seeded_attention)
-        season = season_path(dev, reset_counts, read_counts, scene,
-                             season_cfg, [first, tracked, tracked])
+        season, season_epoches = season_path(
+            dev, reset_counts, read_counts, scene, season_cfg,
+            [first, tracked, tracked])
         torch.cuda.empty_cache()
         sift_season = sift_season_path(dev, reset_counts, read_counts, scene,
                                        season_cfg)
@@ -1931,7 +2404,10 @@ def main() -> None:
                              + seeded_attention)],
             epoch_seconds(season["stage_times_s"]["0"]))
         tools["exif"] = exif_check(tmp)
-        del scene
+        # -- 17. the 4D products on phase 7's clouds, frames and epochs
+        products = products_path(dev, reset_counts, read_counts, scene,
+                                 season_epoches, tmp)
+        del scene, season_epoches
     torch.cuda.empty_cache()
 
     # -- 11. n-camera season -----------------------------------------------------
@@ -2026,7 +2502,8 @@ def main() -> None:
         "adaptive_path": adaptive, "multicam_path": multicam,
         "pnp_magsac_resection": pnp, "superglue_path": superglue,
         "extractor_path": extractors, "loftr_semidense_path": loftr,
-        "season_tools_path": tools}, default=str))
+        "season_tools_path": tools, "products_path": products},
+        default=str))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -16,17 +16,31 @@ from icepy4d_tpu_torch.device import full_f32_matmul, resolve_device
 from icepy4d_tpu_torch.io.ply import read_ply, write_ply
 
 
+def centred(xyz: torch.Tensor) -> torch.Tensor:
+    """float32 coordinates relative to the cloud's mean (taken in
+    float64).
+
+    The brute-force kNN forms squared distances as |a|^2 + |b|^2 - 2a.b;
+    in float32 that keeps centimetres only near the origin (at 1.4 km
+    |a|^2 is resolved to ~0.2 m^2). Distances do not change under a
+    translation, so every kNN here runs on centred coordinates.
+    """
+    x64 = xyz.to(torch.float64)
+    return (x64 - x64.mean(0)).to(torch.float32)
+
+
 def _sor_mask(xyz: torch.Tensor, knn: int, std_ratio: float,
               block: int = 4096) -> torch.Tensor:
     """Statistical outlier removal mask by brute-force kNN.
 
-    Distances run in row blocks, so the peak is a (block, N) tile, not
-    (N, N): each point's mean distance to its k nearest others (self
-    masked), kept when it lies within `std_ratio` standard deviations of
-    the mean of those means.
+    Distances run in row blocks on centred coordinates, so the peak is a
+    (block, N) tile, not (N, N): each point's mean distance to its k
+    nearest others (self masked), kept when it lies within `std_ratio`
+    standard deviations of the mean of those means.
     """
     n = xyz.shape[0]
     k = min(knn, n - 1)
+    xyz = centred(xyz)
     sq_all = torch.sum(xyz * xyz, 1)
     cols = torch.arange(n, device=xyz.device)
     means = []

@@ -1,13 +1,17 @@
-"""Named-checkpoint timer with exponential smoothing."""
+"""Named-checkpoint timer with exponential smoothing, and the `timeit`
+decorator (counterpart of `icepy4d_tpu/utils/timer.py`)."""
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
 
 import torch
 
-logger = logging.getLogger("icepy4d_tpu_torch")
+from icepy4d_tpu_torch.utils.logger import LOGGER_NAME, get_logger
+
+logger = logging.getLogger(LOGGER_NAME)
 
 
 class AverageTimer:
@@ -46,3 +50,17 @@ class AverageTimer:
         total = sum(self.times.values())
         logger.info(f"[{text}] " + ", ".join(parts) + f" total={total:.3f} s")
         self.reset()
+
+
+def timeit(func):
+    """Decorator: log the wall-clock time of each call of `func`."""
+    @functools.wraps(func)
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = func(*args, **kwargs)
+        get_logger().info(
+            f"Function {func.__name__} took {time.perf_counter() - t0:.4f} s"
+        )
+        return result
+
+    return wrapper

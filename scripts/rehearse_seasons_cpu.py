@@ -4,10 +4,11 @@ LightGlue with tracking and dense; 8: the SIFT season; 10: the adaptive
 matcher; 11: the n-camera season; 12: PnP, MAGSAC and the stereo season
 with space resection and the match writer; 13: SuperGlue; 14: DISK and
 ALIKED; 15: semi-dense and LoFTR; 16: warmup, watch and the EXIF
-scanner) at a reduced frame size.
+scanner; 17: the 4D products on phase 7's outputs, which it runs first)
+at a reduced frame size.
 
     python3 scripts/rehearse_seasons_cpu.py \
-        [--phase 7|8|10|11|12|13|14|15|16|both|all]
+        [--phase 7|8|10|11|12|13|14|15|16|17|both|all]
 
 Runs every stage of the phases on the CPU on 1000x1504 frames (f = 1500
 px, 5 m baseline, 1024 keypoints a tile), in a few minutes ("both" is
@@ -36,7 +37,8 @@ sys.path.insert(0, str(REPO / "tests"))
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("7", "8", "10", "11", "12", "13",
-                                        "14", "15", "16", "both", "all"),
+                                        "14", "15", "16", "17", "both",
+                                        "all"),
                     default="both")
     args = ap.parse_args()
 
@@ -53,6 +55,7 @@ def main() -> None:
     cs.SEASON_BASELINE = 5.0    # at 4 m the faces' disparities collapse
     cs.SEMIDENSE_CROP = (504, 752)
     cs.cuda_ms = lambda fn, reps: (fn(), 0.0)[1]   # no timing on the CPU
+    cs.card_line = lambda: "CPU rehearsal"
     pipeline.resolve_device = lambda device=None: torch.device("cpu")
     counts = {"nms": 0, "attention": 0, "sweep": 0}
 
@@ -80,7 +83,8 @@ def main() -> None:
 
     dev = torch.device("cpu")
     want = {"both": ("7", "8"),
-            "all": ("7", "8", "10", "11", "12", "13", "14", "15", "16")}.get(
+            "all": ("7", "8", "10", "11", "12", "13", "14", "15", "16",
+                    "17")}.get(
         args.phase, (args.phase,))
     with tempfile.TemporaryDirectory() as tmp:
         scene, cfg = cs.season_config(dev, tmp, n_epochs=3)
@@ -92,9 +96,14 @@ def main() -> None:
         first3 = {"nms": 4, "attention": 72, "sweep": 0}
         tracked3 = {"nms": 7, "attention": 108, "sweep": 0}
         phases = []
-        if "7" in want:
-            phases.append(("7", lambda: cs.season_path(
-                dev, reset, read, scene, cfg, [first, tracked, tracked])))
+        epoches = []
+
+        def season():
+            epoches.append(cs.season_path(dev, reset, read, scene, cfg,
+                                          [first, tracked, tracked])[1])
+
+        if "7" in want or "17" in want:
+            phases.append(("7", season))
         if "8" in want:
             phases.append(("8", lambda: cs.sift_season_path(
                 dev, reset, read, scene, cfg)))
@@ -137,6 +146,15 @@ def main() -> None:
                 cs.season_tools_path(reset, read, cfg, [
                     untracked, dict(untracked, attention=72)], 0.0),
                 cs.exif_check(tmp))))
+        if "17" in want:
+            # phase 17 needs phase 7's outputs: the full-size gates of
+            # phase 7 are not checked here
+            cs.check_epoch = lambda st, gates: None
+            cs.SEASON_GATES = dict(cs.SEASON_GATES, points=0, dense_points=0,
+                                   dense_surface_m=float("inf"),
+                                   track_px=float("inf"))
+            phases.append(("17", lambda: cs.products_path(
+                dev, reset, read, scene, epoches[-1], tmp)))
         for name, run in phases:
             t0 = time.perf_counter()
             try:

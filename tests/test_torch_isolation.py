@@ -210,3 +210,41 @@ def test_matchers_and_tools_raise_without_cuda(no_cuda):
                  lambda: FeatureSet.empty(8), lambda: PointSet.empty(8)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+def test_product_packages_import_no_optional_host_package():
+    """Importing the products (post_processing, utils, io,
+    visualization) pulls in none of pandas, matplotlib, h5py or
+    rasterio: a machine without them runs every device path."""
+    code = (
+        "import sys\n"
+        "import icepy4d_tpu_torch.post_processing, icepy4d_tpu_torch.utils\n"
+        "import icepy4d_tpu_torch.io, icepy4d_tpu_torch.visualization\n"
+        "bad = [m for m in ('pandas', 'matplotlib', 'h5py', 'rasterio')\n"
+        "       if m in sys.modules]\n"
+        "print(bad or 'ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", \
+        (out.stdout, out.stderr)
+
+
+def test_products_raise_without_cuda(no_cuda, tmp_path):
+    """The products' device entry points run on the card by default."""
+    from icepy4d_tpu_torch.post_processing import (
+        DemOfDifference, estimate_normals, geometric_features,
+        poisson_reconstruct, voxelize)
+    from icepy4d_tpu_torch.utils import (TrackTargets, binned_statistic,
+                                         build_dsm)
+
+    x = np.random.default_rng(0).uniform(0, 10, (64, 3)).astype(np.float32)
+    img = np.zeros((16, 16), np.uint8)
+    for make in (lambda: build_dsm(x), lambda: binned_statistic(x, x[:, 0],
+                                                                1.0),
+                 lambda: voxelize(x), lambda: geometric_features(x),
+                 lambda: estimate_normals(x), lambda: poisson_reconstruct(x),
+                 lambda: DemOfDifference(x, x),
+                 lambda: TrackTargets(img, [], [[8.0, 8.0]],
+                                      out_dir=tmp_path)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()

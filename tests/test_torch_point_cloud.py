@@ -1,7 +1,10 @@
 """The port's PointCloud == icepy4d_tpu's: the SOR mask is equal at
 n = 3000 with row blocks smaller than the cloud (a last block padded in
 the JAX package, cut short in the port), a PLY round trip keeps points
-exactly and colours to the byte, and LAS export raises without laspy."""
+exactly and colours to the byte, and LAS export raises without laspy.
+The port's SOR centres the cloud before its float32 distance expansion,
+so the same cloud moved to the synthetic season's world frame (1.3 km
+from the origin) keeps its mask."""
 
 import sys
 
@@ -33,6 +36,16 @@ def test_sor_mask_matches_jax(knn, block):
     got = _sor_mask(torch.from_numpy(xyz), knn, 3.0, block).numpy()
     np.testing.assert_array_equal(got, ref)
     assert not got[:60].any() and got[60:].mean() > 0.99
+
+
+def test_sor_mask_of_offset_cloud():
+    from torch_port_inputs import SEASON_ORIGIN
+
+    xyz = _cloud()
+    at_origin = _sor_mask(torch.from_numpy(xyz), 10, 3.0).numpy()
+    moved = (xyz + SEASON_ORIGIN).astype(np.float32)
+    np.testing.assert_array_equal(
+        _sor_mask(torch.from_numpy(moved), 10, 3.0).numpy(), at_origin)
 
 
 def test_sor_filter_matches_jax():

@@ -195,12 +195,41 @@ anything in it fails:
    needs pandas, not matplotlib, h5py or rasterio: the plots, the h5
    export and the GeoTIFF are not run on the card.
 
+18. training, on phase 7's frames (the real-patch pool) and epochs:
+   (a) one train step of each trainer at full width with batch 2
+   (SuperPoint 120x160, LightGlue 9 layers at 512 keypoints, ALIKED
+   240x320, bundled weights) on the card and on the CPU from the same
+   state and batch, in f32 without TF32: losses within 1e-4 relative,
+   every gradient tensor within 1e-3 of its largest magnitude (ALIKED's
+   peaks, supervision anchors, are the card's in both runs; the share
+   of the CPU's own peaks that equal them is printed); (b)
+   train_superpoint at its published width and defaults (batch 32,
+   120x160, lr 1e-3) from a fresh init, 32 cached batches, 300 steps:
+   the last 50-step chunk's mean loss below the first's, the warm
+   ms/step printed; (c) homographic adaptation of 8 patches with 24
+   warps by the bundled SuperPoint (some pseudo-label found); (d) make_lightglue_dataset with the bundled SuperPoint, 8
+   batches of 16 pairs at 240x320 (exactly 4 NMS launches), LightGlue
+   from the bundled checkpoint trained 200 steps on 6 of them (9 layers,
+   256-d, 4 heads) and evaluated on the other 2 before and after
+   (exactly 36 attention launches a batch and evaluation): the trained
+   recall not below the loaded one's by more than 0.05; (e)
+   collect_epoch_pairs on phase 7's results at scale 0.25 (3 pairs,
+   exactly 2 NMS launches a pair), make_correspondence_dataset (4
+   batches) mixed with homography_to_explicit of (d)'s 6, 100
+   explicit-GT steps; (f) train_aliked at its defaults from the bundled
+   checkpoint, 100 steps; (g) each trained model through save_params and
+   load_params bit for bit, and the reloaded SuperPoint's extract equal
+   to the trained one's bit for bit (2 NMS launches). Timed training
+   runs as the port's inference does: f32 storage, cuDNN convolutions
+   in TF32, matmuls in f32 (this script turns matmul TF32 off).
+
 Phase 10 runs after phase 5 on its pair and phases 13-15 after it,
 phase 12 after phase 8 on phase 7's frames, phase 16 after it, phase
-17 after it on phase 7's outputs, and phase 11 after those, all before
-the timing of phase 9; their results are in the same JSON line. The
-kernels line's launches are those of the matcher paths of phases 4, 13
-and 14 (the sweep's of phase 6).
+17 after it on phase 7's outputs, phase 18 after it, and phase 11
+after those, all before the timing of phase 9; their results are in
+the same JSON line. The kernels line's launches are those of the
+matcher paths of phases 4, 13 and 14 and of phase 18 (the sweep's of
+phase 6).
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -2073,6 +2102,373 @@ def products_path(dev, reset_counts, read_counts, scene, epoches,
     return out
 
 
+# -- phase 18: training ---------------------------------------------------------
+
+TRAIN_LOSS_RTOL = 1e-4         # card against CPU, one step's loss
+TRAIN_GRAD_TOL = 1e-3          # ... each gradient, of its largest magnitude
+TRAIN_RECALL_DROP = 0.05       # trained LightGlue's recall below the loaded
+# Phase 18's sizes: the published widths and the trainers' defaults, cut
+# in steps and cached batches only (a CPU rehearsal shrinks them all)
+TRAINING = {"sp_steps": 300, "sp_batch": 32, "sp_cached": 32,
+            "ha_patches": 8, "lg_batches": 8, "lg_eval": 2, "lg_batch": 16,
+            "lg_keypoints": 512, "lg_steps": 200,
+            "ft_batches": 4, "ft_steps": 100, "al_steps": 100,
+            "al_batch": 16, "al_batches": 64, "chunk": 50, "reps": 10}
+
+
+def grads_of(params) -> dict:
+    return {n: p.grad.detach().cpu() for n, p in params}
+
+
+def compare_step(label: str, card: tuple, cpu: tuple) -> dict:
+    """(loss, grads) of one train step on the card and on the CPU: the
+    loss within TRAIN_LOSS_RTOL relative, each gradient tensor within
+    TRAIN_GRAD_TOL of its largest magnitude."""
+    (lc, gc), (lh, gh) = card, cpu
+    rel = abs(lc - lh) / abs(lh)
+    worst, worst_name = 0.0, None
+    for name, ref in gh.items():
+        scale = float(ref.abs().max())
+        err = float((gc[name] - ref).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    log(f"  {label}: loss card {lc:.7f} cpu {lh:.7f} (rel {rel:.2e}), "
+        f"worst gradient {worst:.2e} of its max ({worst_name})")
+    if not (rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"{label} card against CPU: loss rel {rel}, "
+                             f"gradient {worst} ({worst_name})")
+    return {"loss_card": lc, "loss_cpu": lh, "loss_rel": rel,
+            "grad_rel_max": worst, "grad_worst": worst_name}
+
+
+def step_ms(step, args, reps: int) -> float:
+    """Warm host time of one train step (two warm-up steps, then `reps`
+    steps ending in a synchronise)."""
+    for _ in range(2):
+        step(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def training_path(dev, reset_counts, read_counts, image_dir, results_dir,
+                  root) -> dict:
+    """Phase 18: the trainers at their published widths on the card,
+    on phase 7's frames and epochs (sizes in TRAINING). Returns what the
+    JSON line reports; `launches` holds the NMS and attention launches
+    of (d), (e) and (g)."""
+    from icepy4d_tpu_torch.device import full_f32_matmul
+    from icepy4d_tpu_torch.models import ALIKED, LightGlue, SuperPoint
+    from icepy4d_tpu_torch.models import convert
+    from icepy4d_tpu_torch.models.superpoint import SuperPointNet
+    from icepy4d_tpu_torch.training import _optim
+    from icepy4d_tpu_torch.training import aliked_train as at
+    from icepy4d_tpu_torch.training import lightglue_train as lt
+    from icepy4d_tpu_torch.training import superpoint_train as st
+    from icepy4d_tpu_torch.training.synthetic import (load_real_patch_pool,
+                                                      make_pair_batch)
+
+    z = TRAINING
+    cpu = torch.device("cpu")
+    out = {"card": card_line(), "sizes": dict(z), "times_s": {}}
+    times = out["times_s"]
+    t_phase = time.perf_counter()
+    sp_tree = convert.load_params(convert.bundled_checkpoint(
+        "superpoint_synthetic.npz"))
+    lg_tree = convert.load_params(convert.bundled_checkpoint(
+        "lightglue_synthetic.npz"))
+    al_tree = convert.load_params(convert.bundled_checkpoint(
+        "aliked_synthetic.npz"))
+    t0 = time.perf_counter()
+    pool = load_real_patch_pool(image_dir)
+    times["pool_decode"] = time.perf_counter() - t0
+    log(f"training path: pool of {len(pool)} frames "
+        f"{pool[0].shape[1]}x{pool[0].shape[0]} decoded in "
+        f"{times['pool_decode']:.1f} s")
+
+    def superpoint(device, max_keypoints, state):
+        return SuperPoint(max_keypoints=max_keypoints,
+                          detection_threshold=0.0005, device=device
+                          ).load_state_dict(state)
+
+    # -- (a) one step on the card against the CPU, f32 without TF32 ----------
+    rng = np.random.default_rng(18)
+    sp_batch = make_pair_batch(rng, 2, 120, 160)
+    al_batch = make_pair_batch(rng, 2, 240, 320) + (
+        np.ones(2, np.float32),)
+    recorded = {}
+
+    def sp_step(device):
+        net = SuperPointNet()
+        net.load_state_dict(convert.superpoint_state_dict(sp_tree))
+        net.to(device)
+        m = st.make_train_step(net, _optim.superpoint_optimizer(
+            net.parameters(), 1e-3))(
+            *(torch.from_numpy(a).to(device) for a in sp_batch))
+        return float(m["loss"]), grads_of(net.named_parameters())
+
+    def al_step(device, peaks):
+        model = ALIKED(device=device).load_state_dict(
+            convert.aliked_params(al_tree))
+
+        def detect(score, k, r):
+            # the card's peaks anchor both runs (they are supervision,
+            # not gradient paths); the CPU's own are compared below
+            got = at._detect_peaks(score, k, r)
+            recorded[device.type] = got
+            return got if peaks is None else \
+                tuple(t.to(score.device) for t in peaks)
+
+        opt = _optim.aliked_optimizer(model.model.parameters(), 3e-4, 100)
+        loss = at.make_train_step(model, opt, detect_fn=detect)(
+            *(torch.from_numpy(a).to(device) for a in al_batch))
+        return float(loss), grads_of(model.model.named_parameters())
+
+    def lg_step(device, batch):
+        model = LightGlue(device=device)
+        model.load_state_dict(convert.lightglue_params(lg_tree))
+        m = lt.make_train_step(model, _optim.Adam(
+            model.parameters(), 1e-4, clip_norm=1.0))(
+            {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        return float(m["loss"]), grads_of(model.named_parameters())
+
+    step_check = {}
+    with full_f32_matmul():
+        step_check["superpoint"] = compare_step(
+            "SuperPoint 120x160 b2", sp_step(dev), sp_step(cpu))
+        card = al_step(dev, None)
+        card_peaks = recorded[dev.type]
+        step_check["aliked"] = compare_step(
+            "ALIKED 240x320 b2", card, al_step(cpu, card_peaks))
+    peaks_equal = float((card_peaks[0].cpu() == recorded["cpu"][0])
+                        .all(-1).float().mean())
+    step_check["aliked"]["own_peaks_equal"] = peaks_equal
+    log(f"  ALIKED: share of the CPU's own peaks equal to the card's "
+        f"{peaks_equal:.4f}")
+
+    # -- (b) SuperPoint at its published width and defaults ---------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp_state, sp_hist = st.train_superpoint(
+        steps=z["sp_steps"], batch=z["sp_batch"], h=120, w=160, lr=1e-3,
+        seed=0, n_cached_batches=z["sp_cached"], scan_chunk=z["chunk"],
+        device=dev)
+    torch.cuda.synchronize()
+    times["superpoint_train"] = time.perf_counter() - t0
+    net = SuperPointNet()
+    net.load_state_dict(sp_state)
+    net.to(dev)
+    batch = [torch.from_numpy(a).to(dev) for a in make_pair_batch(
+        np.random.default_rng(1), z["sp_batch"], 120, 160)]
+    sp_ms = step_ms(st.make_train_step(
+        net, _optim.Adam(net.parameters(), 1e-3)), batch, z["reps"])
+    del net
+    means = [h["chunk_mean"] for h in sp_hist]
+    out["superpoint"] = {"warm_ms_per_step": sp_ms, "chunk_means": means,
+                         "run_s": times["superpoint_train"]}
+    log(f"  SuperPoint: {z['sp_steps']} steps of {z['sp_batch']} at "
+        f"120x160 in {times['superpoint_train']:.1f} s (data made on the "
+        f"host included), warm {sp_ms:.2f} ms/step, chunk means "
+        f"{[round(m, 4) for m in means]}")
+    if not means[-1] < means[0]:
+        raise AssertionError(f"SuperPoint loss did not fall: {means}")
+
+    # -- (c) homographic adaptation on phase 7's frames -------------------------
+    t0 = time.perf_counter()
+    ha_imgs, ha_labels = st.homographic_adaptation(
+        convert.superpoint_state_dict(sp_tree), pool,
+        np.random.default_rng(19),
+        n_patches=z["ha_patches"], n_warps=24, device=dev)
+    times["homographic_adaptation"] = time.perf_counter() - t0
+    n_labels = int((ha_labels < 64).sum())
+    out["homographic_adaptation"] = {
+        "pseudo_labels": n_labels, "run_s": times["homographic_adaptation"]}
+    log(f"  homographic adaptation: {z['ha_patches']} patches x 24 warps, "
+        f"{n_labels} pseudo-labels, {times['homographic_adaptation']:.2f} s")
+    if ha_imgs.shape != (z["ha_patches"], 120, 160) or not n_labels:
+        raise AssertionError(f"homographic adaptation {ha_imgs.shape}, "
+                             f"{n_labels} labels")
+
+    # -- (d) LightGlue, homography stage ---------------------------------------
+    sp = superpoint(dev, z["lg_keypoints"],
+                    convert.superpoint_state_dict(sp_tree))
+    launches = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ds = lt.make_lightglue_dataset(
+        np.random.default_rng(20), sp.extract, n_batches=z["lg_batches"],
+        batch=z["lg_batch"], h=240, w=320, real_pool=pool)
+    torch.cuda.synchronize()
+    times["lightglue_dataset"] = time.perf_counter() - t0
+    launches["dataset"] = read_counts()
+    n_train = z["lg_batches"] - z["lg_eval"]
+    train_ds = {k: v[:n_train] for k, v in ds.items()}
+    eval_ds = {k: v[n_train:] for k, v in ds.items()}
+    with full_f32_matmul():
+        b2 = {k: v[0, :2] for k, v in ds.items()}
+        step_check["lightglue"] = compare_step(
+            f"LightGlue 9 layers, {z['lg_keypoints']} keypoints, b2",
+            lg_step(dev, b2), lg_step(cpu, b2))
+    out["card_vs_cpu"] = step_check
+
+    lg = LightGlue(device=dev)
+    lg.load_state_dict(convert.lightglue_params(lg_tree))
+    reset_counts()
+    before = lt.evaluate_matching(lg, None, eval_ds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg_state, lg_hist = lt.train_lightglue(
+        lg, train_ds, steps=z["lg_steps"], lr=2e-4,
+        params=convert.lightglue_params(lg_tree), scan_chunk=z["chunk"],
+        warmup=20, log=lambda s: None)
+    torch.cuda.synchronize()
+    times["lightglue_train"] = time.perf_counter() - t0
+    after = lt.evaluate_matching(lg, None, eval_ds)
+    launches["evaluate"] = read_counts()
+    lg_time = LightGlue(device=dev)
+    lg_time.load_state_dict(lg_state)
+    lg_ms = step_ms(lt.make_train_step(lg_time, _optim.Adam(
+        lg_time.parameters(), 1e-4, clip_norm=1.0)), ({
+            k: torch.from_numpy(v[0]).to(dev)
+            for k, v in train_ds.items()},), z["reps"])
+    del lg_time
+    out["lightglue"] = {
+        "run_s": times["lightglue_train"], "warm_ms_per_step": lg_ms,
+        "dataset_s": times["lightglue_dataset"],
+        "chunk_means": [h["chunk_mean"] for h in lg_hist],
+        "recall_gt": [h["recall_gt"] for h in lg_hist],
+        "eval_before": before, "eval_after": after}
+    log(f"  LightGlue: dataset of {z['lg_batches']} x {z['lg_batch']} "
+        f"pairs in {times['lightglue_dataset']:.1f} s (launches "
+        f"{launches['dataset']}), {z['lg_steps']} steps in "
+        f"{times['lightglue_train']:.1f} s, warm {lg_ms:.1f} ms/step, chunk "
+        f"means {[round(h['chunk_mean'], 4) for h in lg_hist]}; held out: "
+        f"before {before}, after {after}; evaluation launches "
+        f"{launches['evaluate']}")
+    n_chunks = -(-z["lg_batches"] * z["lg_batch"] // 64)
+    if launches["dataset"] != {"nms": 2 * n_chunks, "attention": 0,
+                               "sweep": 0}:
+        raise AssertionError(f"dataset launches {launches['dataset']}")
+    if launches["evaluate"] != {"nms": 0, "sweep": 0, "attention":
+                                2 * 36 * z["lg_eval"]}:
+        raise AssertionError(f"evaluation launches {launches['evaluate']}")
+    if after["recall"] < before["recall"] - TRAIN_RECALL_DROP:
+        raise AssertionError(f"LightGlue recall {before['recall']} -> "
+                             f"{after['recall']}")
+
+    # -- (e) the fine-tune on phase 7's verified correspondences ----------------
+    reset_counts()
+    t0 = time.perf_counter()
+    pairs = lt.collect_epoch_pairs(results_dir, image_scale=0.25)
+    corr = lt.make_correspondence_dataset(
+        np.random.default_rng(21), sp.describe_at, sp.extract, pairs,
+        n_batches=z["ft_batches"], batch=z["lg_batch"],
+        n_kpts=z["lg_keypoints"])
+    homog = lt.homography_to_explicit(train_ds, device=dev)
+    mixed = {k: np.concatenate([corr[k], homog[k]]) for k in corr}
+    torch.cuda.synchronize()
+    times["finetune_dataset"] = time.perf_counter() - t0
+    launches["finetune"] = read_counts()
+    t0 = time.perf_counter()
+    ft_state, ft_hist = lt.train_lightglue(
+        lg, mixed, steps=z["ft_steps"], lr=5e-5, params=lg_state,
+        scan_chunk=z["chunk"], log=lambda s: None)
+    torch.cuda.synchronize()
+    times["finetune_train"] = time.perf_counter() - t0
+    n_corr = [len(p["corr0"]) for p in pairs]
+    out["finetune"] = {
+        "pairs": len(pairs), "correspondences": n_corr,
+        "frame": list(pairs[0]["img0"].shape) if pairs else None,
+        "dataset_s": times["finetune_dataset"],
+        "run_s": times["finetune_train"],
+        "chunk_means": [h["chunk_mean"] for h in ft_hist],
+        "recall_gt": [h["recall_gt"] for h in ft_hist]}
+    log(f"  fine-tune: {len(pairs)} epoch pairs ({n_corr} verified "
+        f"correspondences, frames {out['finetune']['frame']}), "
+        f"{z['ft_batches']} real + {n_train} homography batches in "
+        f"{times['finetune_dataset']:.1f} s (launches "
+        f"{launches['finetune']}), {z['ft_steps']} steps in "
+        f"{times['finetune_train']:.1f} s, chunk means "
+        f"{[round(h['chunk_mean'], 4) for h in ft_hist]}")
+    if len(pairs) != 3 or launches["finetune"] != {
+            "nms": 2 * len(pairs), "attention": 0, "sweep": 0}:
+        raise AssertionError(f"fine-tune pairs {len(pairs)}, launches "
+                             f"{launches['finetune']}")
+    if not all(np.isfinite(h["chunk_mean"]) for h in ft_hist):
+        raise AssertionError(f"fine-tune history {ft_hist}")
+
+    # -- (f) ALIKED at its defaults ---------------------------------------------
+    al = ALIKED(device=dev).load_state_dict(convert.aliked_params(al_tree))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    al_logs = []
+    al_state = at.train_aliked(
+        al, None, steps=z["al_steps"], batch=z["al_batch"], h=240, w=320,
+        seed=0, n_batches=z["al_batches"], real_pool=pool,
+        scan_chunk=z["chunk"], log=al_logs.append)
+    torch.cuda.synchronize()
+    times["aliked_train"] = time.perf_counter() - t0
+    al_time = ALIKED(device=dev).load_state_dict(al_state)
+    al_args = [torch.from_numpy(a).to(dev) for a in make_pair_batch(
+        np.random.default_rng(2), z["al_batch"], 240, 320)] + [
+        torch.ones(z["al_batch"], device=dev)]
+    al_ms = step_ms(at.make_train_step(al_time, _optim.aliked_optimizer(
+        al_time.model.parameters(), 3e-4, z["al_steps"])), al_args,
+        z["reps"])
+    del al_time
+    out["aliked"] = {"run_s": times["aliked_train"],
+                     "warm_ms_per_step": al_ms, "log": al_logs}
+    log(f"  ALIKED: {z['al_steps']} steps of {z['al_batch']} at 240x320 in "
+        f"{times['aliked_train']:.1f} s ({z['al_batches']} cached batches "
+        f"made on the host included), warm {al_ms:.1f} ms/step, {al_logs}")
+    if not all(np.isfinite(float(s.split()[-1])) for s in al_logs):
+        raise AssertionError(f"ALIKED losses {al_logs}")
+
+    # -- (g) checkpoints written and read back ------------------------------------
+    ckpt = Path(root) / "trained"
+    ckpt.mkdir(exist_ok=True)
+    saved = {}
+    for name, state, to_tree, to_port in (
+            ("superpoint", sp_state, convert.superpoint_tree_from_state_dict,
+             convert.superpoint_state_dict),
+            ("lightglue", ft_state, convert.lightglue_tree_from_state_dict,
+             convert.lightglue_params),
+            ("aliked", al_state, convert.aliked_tree_from_state_dict,
+             convert.aliked_params)):
+        path = ckpt / f"{name}.npz"
+        convert.save_params(path, to_tree(state))
+        back = to_port(convert.load_params(path))
+        equal = list(back) == list(state) and all(
+            torch.equal(back[k], state[k].cpu()) for k in state)
+        saved[name] = {"bytes": path.stat().st_size, "bitwise": equal}
+        if not equal:
+            raise AssertionError(f"{name} checkpoint does not read back")
+    imgs = torch.from_numpy(np.stack([p[:240, :320] for p in pool[:2]]))
+    reset_counts()
+    a = superpoint(dev, 512, sp_state).extract(imgs)
+    b = superpoint(dev, 512, convert.superpoint_state_dict(
+        convert.load_params(ckpt / "superpoint.npz"))).extract(imgs)
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    saved["superpoint_extract_bitwise"] = same
+    launches["checkpoint"] = read_counts()
+    out["checkpoints"] = saved
+    log(f"  checkpoints: {saved}, launches {launches['checkpoint']}")
+    if not same or launches["checkpoint"]["nms"] != 2:
+        raise AssertionError("the reloaded SuperPoint extracts otherwise")
+
+    out["launches"] = {k: sum(c[k] for c in launches.values())
+                       for k in ("nms", "attention")}
+    out["launches_by_step"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  training path: {out['phase_s']:.1f} s, launches "
+        f"{out['launches']} on {out['card']}")
+    return out
+
+
 def main() -> None:
     # -- 1. card ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2408,6 +2804,11 @@ def main() -> None:
         products = products_path(dev, reset_counts, read_counts, scene,
                                  season_epoches, tmp)
         del scene, season_epoches
+        torch.cuda.empty_cache()
+        # -- 18. training on phase 7's frames and epochs
+        training = training_path(dev, reset_counts, read_counts,
+                                 season_cfg["paths"]["image_dir"],
+                                 Path(tmp) / "res_lightglue", tmp)
     torch.cuda.empty_cache()
 
     # -- 11. n-camera season -----------------------------------------------------
@@ -2473,13 +2874,15 @@ def main() -> None:
         {"name": "fused_nms_border", "route": "cuda",
          "source": "icepy4d_tpu_torch/csrc/nms.cu",
          "replaces": "icepy4d_tpu/ops/pallas_nms.py:105",
-         "launches": path_launches["nms"], "max_abs_err": nms_err,
+         "launches": path_launches["nms"] + training["launches"]["nms"],
+         "max_abs_err": nms_err,
          "ms": nms_ms, "plain_ms": nms_plain_ms, "bound_ms": nms_bound,
          "bound_by": nms_by, "library_ms": None},
         {"name": "masked_flash_attention", "route": "cuda",
          "source": "icepy4d_tpu_torch/csrc/attention.cu",
          "replaces": "icepy4d_tpu/ops/attention.py:109",
-         "launches": path_launches["attention"], "max_abs_err": att_err,
+         "launches": path_launches["attention"]
+         + training["launches"]["attention"], "max_abs_err": att_err,
          "ms": att_ms, "plain_ms": att_plain_ms, "bound_ms": att_bound,
          "bound_by": att_by, "library_ms": sdpa_ms},
         {"name": "disparity_sweep", "route": "cuda",
@@ -2502,7 +2905,8 @@ def main() -> None:
         "adaptive_path": adaptive, "multicam_path": multicam,
         "pnp_magsac_resection": pnp, "superglue_path": superglue,
         "extractor_path": extractors, "loftr_semidense_path": loftr,
-        "season_tools_path": tools, "products_path": products},
+        "season_tools_path": tools, "products_path": products,
+        "training_path": training},
         default=str))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

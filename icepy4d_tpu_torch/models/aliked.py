@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from icepy4d_tpu_torch.device import resolve_device
 from icepy4d_tpu_torch.models.superpoint import _topk_peaks
-from icepy4d_tpu_torch.ops.image import bilinear_sample
+from icepy4d_tpu_torch.ops.image import bilinear_sample_batched
 from icepy4d_tpu_torch.ops.nms import simple_nms
 
 
@@ -104,23 +104,28 @@ class SDDH(nn.Module):
 
     def forward(self, feat: torch.Tensor, kpts: torch.Tensor) -> torch.Tensor:
         """feat (H, W, D) normalised feature map; kpts (K, 2) xy px ->
-        (K, dim) L2-normalised descriptors."""
-        k = kpts.shape[0]
+        (K, dim) L2-normalised descriptors. A leading batch axis on both,
+        (B, H, W, D) and (B, K, 2), gives (B, K, dim): each image's
+        descriptors from its own map (the trainer's batched call)."""
+        if feat.ndim == 3:
+            return self(feat[None], kpts[None])[0]
+        b, k = kpts.shape[:2]
+        d = feat.shape[-1]
         p, m = self.patch, self.n_samples
         r = (p - 1) / 2.0
         lin = torch.linspace(-r, r, p, device=kpts.device)
         dy, dx = torch.meshgrid(lin, lin, indexing="ij")
         grid = torch.stack([dx.reshape(-1), dy.reshape(-1)], -1)
-        patch_xy = kpts[:, None, :] + grid[None]             # (K, p*p, 2)
-        patches = bilinear_sample(feat, patch_xy.reshape(-1, 2))
-        patches = patches.reshape(k, p * p * feat.shape[-1])
+        patch_xy = kpts[:, :, None, :] + grid                # (B, K, p*p, 2)
+        patches = bilinear_sample_batched(feat, patch_xy.reshape(b, -1, 2))
+        patches = patches.reshape(b, k, p * p * d)
         raw = self.off2(F.selu(self.off1(patches)))
-        offs = torch.tanh(raw[:, : 2 * m].reshape(k, m, 2)) * self.radius
-        wgt = torch.softmax(raw[:, 2 * m:], dim=-1)          # (K, M)
-        samples = bilinear_sample(
-            feat, (kpts[:, None, :] + offs).reshape(-1, 2))
-        mixed = torch.einsum("km,kmd->kd", wgt,
-                             samples.reshape(k, m, feat.shape[-1]))
+        offs = torch.tanh(raw[..., : 2 * m].reshape(b, k, m, 2)) * self.radius
+        wgt = torch.softmax(raw[..., 2 * m:], dim=-1)        # (B, K, M)
+        samples = bilinear_sample_batched(
+            feat, (kpts[:, :, None, :] + offs).reshape(b, -1, 2))
+        mixed = torch.einsum("bkm,bkmd->bkd", wgt,
+                             samples.reshape(b, k, m, d))
         return _l2_normalize(self.proj(mixed))
 
 
@@ -200,8 +205,7 @@ class ALIKED:
         kpts = kpts + torch.stack([(sm * dx.float()).sum(-1),
                                    (sm * dy.float()).sum(-1)], -1)
 
-        desc = torch.stack([self.model.sddh(feat[i], kpts[i])
-                            for i in range(b)])
+        desc = self.model.sddh(feat, kpts)
         return {"keypoints": kpts,
                 "scores": torch.where(mask, scores, 0.0),
                 "descriptors": torch.where(mask[..., None], desc, 0.0),

@@ -1,8 +1,8 @@
 """Parameter loading: the bundled `.npz` checkpoints and the JAX
 package's parameter trees, carried into the port's modules.
 
-`load_params` and `bundled_checkpoint` are copies of the numpy-only
-loaders in `icepy4d_tpu/models/convert.py`: the `.npz` files hold flat
+`load_params`, `save_params` and `bundled_checkpoint` are copies of the
+numpy-only loaders and writer in `icepy4d_tpu/models/convert.py`: the `.npz` files hold flat
 slash-joined keys (`params/conv1a/kernel`, `layers/0/self_attn/Wqkv/
 kernel`), and integer path segments rebuild lists.
 
@@ -16,6 +16,12 @@ LightGlue's `layers` list and the (H, hd, 3) column order of `Wqkv` are
 kept as they are; SuperGlue's q, k, v and merge channels are permuted
 to the head-major order of `models/superglue.py`; LoFTR's layer stacks
 are split into one module per layer pair.
+
+The `*_tree_from_state_dict` functions go the other way for SuperPoint,
+LightGlue, ALIKED and SuperGlue: a trained module's state dict back to
+the JAX layout, exactly inverting the renames, transposes and the
+head-major permute, so `save_params` writes a checkpoint both packages
+load.
 
 `load_torch_superglue`, `load_torch_disk` and `load_torch_loftr` take
 the published checkpoints' state dicts (a path or a dict): numpy-only
@@ -53,18 +59,43 @@ def load_params(path) -> dict:
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = data[key]
+    return _listify(root)
 
-    def listify(node):
+
+def _listify(node):
+    """Dicts whose keys are all digits -> lists; `__empty_dict__` -> {}."""
+    if isinstance(node, dict):
+        if list(node.keys()) == ["__empty_dict__"]:
+            return {}
+        keys = list(node.keys())
+        if keys and all(k.isdigit() for k in keys):
+            return [_listify(node[str(i)]) for i in range(len(keys))]
+        return {k: _listify(v) for k, v in node.items()}
+    return node
+
+
+def save_params(path, params) -> None:
+    """Tree -> one `.npz` of flat slash-joined keys, the layout
+    `load_params` reads (and the JAX package's `save_params` writes).
+    An empty dict is kept as an `__empty_dict__` entry."""
+    flat = {}
+
+    def walk(prefix, node):
         if isinstance(node, dict):
-            if list(node.keys()) == ["__empty_dict__"]:
-                return {}
-            keys = list(node.keys())
-            if keys and all(k.isdigit() for k in keys):
-                return [listify(node[str(i)]) for i in range(len(keys))]
-            return {k: listify(v) for k, v in node.items()}
-        return node
+            if not node:
+                flat[f"{prefix}/__empty_dict__" if prefix
+                     else "__empty_dict__"] = np.zeros(0)
+                return
+            for k, v in node.items():
+                walk(f"{prefix}/{k}" if prefix else str(k), v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(f"{prefix}/{i}", v)
+        else:
+            flat[prefix] = np.asarray(node)
 
-    return listify(root)
+    walk("", params)
+    np.savez_compressed(path, **flat)
 
 
 def _tensor(a) -> torch.Tensor:
@@ -91,6 +122,64 @@ def _flatten(node, prefix: str, out: dict) -> None:
         elif key == "b":
             key = "bias"
         out[prefix + key] = _tensor(a)
+
+
+def _unflatten(state_dict: dict) -> dict:
+    """Port state dict -> JAX-layout tree: the inverse of `_flatten` for
+    the SuperPoint, LightGlue, ALIKED and SuperGlue trees (OIHW conv
+    weights back to HWIO `kernel`, dense `(out, in)` back to `(in, out)`
+    `kernel`, 1-D norm `weight` back to `scale`; integer path segments
+    back to lists)."""
+    root: dict = {}
+    for key, t in state_dict.items():
+        *path, leaf = key.split(".")
+        a = _np(t)
+        if leaf == "weight":
+            if a.ndim == 4:
+                a, leaf = a.transpose(2, 3, 1, 0), "kernel"
+            elif a.ndim == 2:
+                a, leaf = a.T, "kernel"
+            else:
+                leaf = "scale"
+        node = root
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = a.copy(order="C")
+    return _listify(root)
+
+
+def superpoint_tree_from_state_dict(state_dict: dict) -> dict:
+    """SuperPointNet state_dict -> {"params": {"conv1a": {"kernel",
+    "bias"}, ...}}, the tree `superpoint_state_dict` takes."""
+    return {"params": _unflatten(state_dict)}
+
+
+def lightglue_tree_from_state_dict(state_dict: dict) -> dict:
+    """LightGlue state_dict -> the tree `lightglue_params` takes."""
+    return _unflatten(state_dict)
+
+
+def aliked_tree_from_state_dict(state_dict: dict) -> dict:
+    """ALIKEDModel state_dict -> {"params": {"net": ..., "sddh": ...}}."""
+    return {"params": _unflatten(state_dict)}
+
+
+def superglue_tree_from_state_dict(state_dict: dict,
+                                   num_heads: int = 4) -> dict:
+    """SuperGlue state_dict -> the tree `superglue_params` takes, the
+    head-major q / k / v rows and merge columns put back in order."""
+    sd = dict(state_dict)
+    d = sd["final_proj.weight"].shape[0]
+    inv = np.argsort(head_order(d, num_heads))
+    n_layers = 1 + max(int(k.split(".")[1]) for k in sd
+                       if k.startswith("gnn."))
+    for i in range(n_layers):
+        g = f"gnn.{i}."
+        for n in ("q", "k", "v"):
+            sd[g + n + ".weight"] = _np(sd[g + n + ".weight"])[inv]
+            sd[g + n + ".bias"] = _np(sd[g + n + ".bias"])[inv]
+        sd[g + "merge.weight"] = _np(sd[g + "merge.weight"])[:, inv]
+    return _unflatten(sd)
 
 
 def superpoint_state_dict(params: dict) -> dict:

@@ -45,7 +45,11 @@ class SuperPointNet(nn.Module):
         self.convDa = conv(c4, 256)
         self.convDb = nn.Conv2d(256, descriptor_dim, 1)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                raw: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """`raw=True` is the training surface: the 65-way cell logits
+        (B, 65, H/8, W/8) f32 (class axis 1, where the JAX package's
+        NHWC layout has it last) in place of the heat map."""
         x = x.to(self.conv1a.weight.dtype)
         for a, b in ((self.conv1a, self.conv1b), (self.conv2a, self.conv2b),
                      (self.conv3a, self.conv3b)):
@@ -54,12 +58,13 @@ class SuperPointNet(nn.Module):
         x = F.relu(self.conv4a(x), inplace=True)
         x = F.relu(self.conv4b(x), inplace=True)
 
-        logits = self.convPb(F.relu(self.convPa(x), inplace=True))
-        probs = torch.softmax(logits.float(), dim=1)[:, :64]
-        heat = F.pixel_shuffle(probs, 8)[:, 0]          # 8x8 cells -> pixels
-
+        logits = self.convPb(F.relu(self.convPa(x), inplace=True)).float()
         desc = self.convDb(F.relu(self.convDa(x), inplace=True)).float()
         desc = desc / desc.norm(dim=1, keepdim=True).clamp_min(1e-12)
+        if raw:
+            return logits, desc
+        probs = torch.softmax(logits, dim=1)[:, :64]
+        heat = F.pixel_shuffle(probs, 8)[:, 0]          # 8x8 cells -> pixels
         return heat, desc
 
 
@@ -153,6 +158,26 @@ class SuperPoint:
         padded band is masked out like the border.
         """
         return self._extract(images.to(self.device))
+
+    @torch.inference_mode()
+    def describe_at(self, images: torch.Tensor,
+                    kpts: torch.Tensor) -> torch.Tensor:
+        """Descriptors at given pixel positions, no detection.
+
+        images (B, H, W[, 1]) in [0, 1]; kpts (B, K, 2) xy pixels ->
+        (B, K, D) L2-normalised, sampled from the dense map as
+        `extract` samples its keypoints (inputs padded to the 8-px
+        grid)."""
+        images = images.to(self.device)
+        if images.ndim == 4:
+            images = images[..., 0]
+        h0, w0 = images.shape[1:]
+        x = F.pad(images.float(), (0, (-w0) % 8, 0, (-h0) % 8))
+        _, dense_desc = self.net(x[:, None], raw=True)
+        dense = dense_desc.permute(0, 2, 3, 1)
+        kpts = kpts.to(self.device, torch.float32)
+        return torch.stack([sample_descriptors(dense[i], kpts[i])
+                            for i in range(len(kpts))])
 
     def _extract(self, images: torch.Tensor) -> dict:
         if images.ndim == 4:

@@ -147,6 +147,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kmask: torch.Tensor) -> torch.Tensor:
+    """Differentiable masked attention in f32: the counterpart of the JAX
+    package's `_xla_attention`, which its LightGlue training runs in place
+    of the Pallas kernel (that kernel has no backward).
+
+    Two products and a softmax, masked keys filled with -1e9 after the
+    hd^-0.5 scale, so a query row whose keys are all masked gets the
+    uniform average of v (the kernel and `attention_plain` give zeros).
+    The training forward uses it on every device; it launches no kernel
+    of this repository.
+    """
+    sim = (q.float() @ k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    sim = torch.where(kmask[:, None, None, :], sim, -1e9)
+    return (torch.softmax(sim, -1) @ v.float()).to(q.dtype)
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kmask: torch.Tensor) -> torch.Tensor:
     """Dispatch by device: the kernel on CUDA, the plain f32 version on

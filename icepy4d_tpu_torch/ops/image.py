@@ -114,9 +114,22 @@ def bilinear_sample(image: torch.Tensor, xy: torch.Tensor,
 
     Out-of-bounds taps read pad_value (cv2 BORDER_CONSTANT).
     """
-    squeeze = image.ndim == 2
-    img = (image[..., None] if squeeze else image).to(torch.float32)
-    h, w, _ = img.shape
+    return bilinear_sample_batched(image[None], xy[None], pad_value)[0]
+
+
+def bilinear_sample_batched(images: torch.Tensor, xy: torch.Tensor,
+                            pad_value: float = 0.0) -> torch.Tensor:
+    """`bilinear_sample` of each image of (B, H, W[, C]) at its own
+    coords xy (B, ..., 2) -> (B, ...[, C]).
+
+    One gather over the flattened batch, so a backward accumulates into
+    one buffer instead of one a sample call."""
+    squeeze = images.ndim == 3
+    img = (images[..., None] if squeeze else images).to(torch.float32)
+    b, h, w, c = img.shape
+    flat = img.reshape(b * h * w, c)
+    base = (torch.arange(b, device=xy.device) * (h * w)).reshape(
+        (b,) + (1,) * (xy.ndim - 2))
     x, y = xy[..., 0], xy[..., 1]
     x0 = torch.floor(x)
     y0 = torch.floor(y)
@@ -126,7 +139,7 @@ def bilinear_sample(image: torch.Tensor, xy: torch.Tensor,
 
     def tap(xi, yi):
         valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-        v = img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+        v = flat[base + yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)]
         return torch.where(valid[..., None], v, pad_value)
 
     out = (tap(x0i, y0i) * (1 - fx) * (1 - fy)

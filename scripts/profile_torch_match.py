@@ -2,7 +2,8 @@
 """Where a warm full-size run of the PyTorch/CUDA port spends its time.
 
     python3 scripts/profile_torch_match.py
-        [--path match|dense|season|sift] [--top 25]
+        [--path match|dense|season|sift|superpoint_train|lightglue_train|
+                aliked_train] [--top 25]
 
 `--path match` (the default) runs `chip_smoke.py`'s matcher path
 (synthetic 6012x4008 pair, 2x2 EXHAUSTIVE tiles, 4096 keypoints per
@@ -10,8 +11,12 @@ tile, bundled weights, PYDEGENSAC); `--path dense` its dense path
 (PlaneSweepStereo at the pipeline's settings on the synthetic 6012x4008
 plane pair); `--path sift` SIFT at the real season's settings
 (`chip_smoke.SIFT_MATCHING`: 16384 keypoints, one orientation) on one
-frame of the 6012x4008 pair. Each runs once cold, then once under
-`torch.profiler` with CPU and CUDA activity.
+frame of the 6012x4008 pair. `--path superpoint_train`,
+`lightglue_train` and `aliked_train` run one train step of
+`chip_smoke.py` phase 18 from the bundled weights: SuperPoint on 32
+synthetic pairs at 120x160, LightGlue (9 layers) on 16 pairs of 512
+keypoints at 240x320, ALIKED on 16 synthetic pairs at 240x320. Each runs
+once cold, then once under `torch.profiler` with CPU and CUDA activity.
 
 `--path season` runs `Pipeline.run()` on `chip_smoke.py`'s season
 (`chip_smoke.season_config`, three epochs, tracking and dense on as in
@@ -40,6 +45,7 @@ import json
 import sys
 import tempfile
 import time
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -89,6 +95,58 @@ def sift_run(chip_smoke):
     img = torch.from_numpy(chip_smoke.shifted_pair()[0]).cuda()
     img = img[None].float() / 255.0
     return (lambda: sift.extract(img)), dict
+
+
+def train_run(chip_smoke, which: str):
+    """One train step of phase 18's trainer `which`, from the bundled
+    weights on a seeded batch."""
+    import numpy as np
+
+    from icepy4d_tpu_torch.models import ALIKED, LightGlue, SuperPoint
+    from icepy4d_tpu_torch.models import convert
+    from icepy4d_tpu_torch.models.superpoint import SuperPointNet
+    from icepy4d_tpu_torch.training import _optim
+    from icepy4d_tpu_torch.training import aliked_train as at
+    from icepy4d_tpu_torch.training import lightglue_train as lt
+    from icepy4d_tpu_torch.training import superpoint_train as st
+    from icepy4d_tpu_torch.training.synthetic import make_pair_batch
+
+    dev = torch.device("cuda")
+    z = chip_smoke.TRAINING
+    rng = np.random.default_rng(0)
+
+    def tree(name):
+        return convert.load_params(convert.bundled_checkpoint(name))
+
+    if which == "superpoint_train":
+        net = SuperPointNet()
+        net.load_state_dict(convert.superpoint_state_dict(
+            tree("superpoint_synthetic.npz")))
+        net.to(dev)
+        step = st.make_train_step(net, _optim.superpoint_optimizer(
+            net.parameters(), 1e-3))
+        args = [torch.from_numpy(a).to(dev) for a in make_pair_batch(
+            rng, z["sp_batch"], 120, 160)]
+    elif which == "lightglue_train":
+        sp = SuperPoint(max_keypoints=z["lg_keypoints"],
+                        detection_threshold=0.0005).load_state_dict(
+            convert.superpoint_state_dict(tree("superpoint_synthetic.npz")))
+        ds = lt.make_lightglue_dataset(rng, sp.extract, 1, z["lg_batch"])
+        lg = LightGlue()
+        lg.load_state_dict(convert.lightglue_params(
+            tree("lightglue_synthetic.npz")))
+        step = lt.make_train_step(lg, _optim.Adam(lg.parameters(), 1e-4,
+                                                  clip_norm=1.0))
+        args = [{k: torch.from_numpy(v[0]).to(dev) for k, v in ds.items()}]
+    else:
+        al = ALIKED().load_state_dict(convert.aliked_params(
+            tree("aliked_synthetic.npz")))
+        step = at.make_train_step(al, _optim.aliked_optimizer(
+            al.model.parameters(), 3e-4, z["al_steps"]))
+        args = [torch.from_numpy(a).to(dev) for a in make_pair_batch(
+            rng, z["al_batch"], 240, 320)] + [
+            torch.ones(z["al_batch"], device=dev)]
+    return (lambda: step(*args)), dict
 
 
 def device_kernels(prof) -> list:
@@ -193,7 +251,9 @@ def profile_season(chip_smoke, args) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("match", "dense", "season", "sift"),
+    ap.add_argument("--path", choices=("match", "dense", "season", "sift",
+                                       "superpoint_train", "lightglue_train",
+                                       "aliked_train"),
                     default="match",
                     help="which of chip_smoke.py's paths to profile")
     ap.add_argument("--top", type=int, default=25,
@@ -209,8 +269,11 @@ def main() -> None:
     if args.path == "season":
         out = profile_season(chip_smoke, args)
     else:
-        run, stages = {"match": matcher_run, "dense": dense_run,
-                       "sift": sift_run}[args.path](chip_smoke)
+        paths = {"match": matcher_run, "dense": dense_run,
+                 "sift": sift_run}
+        for name in ("superpoint_train", "lightglue_train", "aliked_train"):
+            paths[name] = partial(train_run, which=name)
+        run, stages = paths[args.path](chip_smoke)
         run()                                  # cold: builds, cuDNN plans
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,

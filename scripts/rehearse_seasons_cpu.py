@@ -4,11 +4,11 @@ LightGlue with tracking and dense; 8: the SIFT season; 10: the adaptive
 matcher; 11: the n-camera season; 12: PnP, MAGSAC and the stereo season
 with space resection and the match writer; 13: SuperGlue; 14: DISK and
 ALIKED; 15: semi-dense and LoFTR; 16: warmup, watch and the EXIF
-scanner; 17: the 4D products on phase 7's outputs, which it runs first)
-at a reduced frame size.
+scanner; 17: the 4D products on phase 7's outputs, which it runs first;
+18: training) at a reduced frame size.
 
     python3 scripts/rehearse_seasons_cpu.py \
-        [--phase 7|8|10|11|12|13|14|15|16|17|both|all]
+        [--phase 7|8|10|11|12|13|14|15|16|17|18|both|all]
 
 Runs every stage of the phases on the CPU on 1000x1504 frames (f = 1500
 px, 5 m baseline, 1024 keypoints a tile), in a few minutes ("both" is
@@ -16,7 +16,10 @@ phases 7 and 8, "all" every one). Launches are
 counted on the kernels' plain versions (the CPU runs no kernel). The
 gates, set from full-size card runs, are checked and a gate that fails
 is printed, not raised: at this size the tie-point and rotation gates
-are expected to fail.
+are expected to fail. Phase 18 runs on a 3-epoch 480x640 season of the
+port's Pipeline (about 20 s) at toy sizes (64 keypoints, batches of
+2, a few steps), which checks its control flow
+and launch counts, not its gates on the loss.
 """
 
 from __future__ import annotations
@@ -37,8 +40,8 @@ sys.path.insert(0, str(REPO / "tests"))
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("7", "8", "10", "11", "12", "13",
-                                        "14", "15", "16", "17", "both",
-                                        "all"),
+                                        "14", "15", "16", "17", "18",
+                                        "both", "all"),
                     default="both")
     args = ap.parse_args()
 
@@ -84,7 +87,7 @@ def main() -> None:
     dev = torch.device("cpu")
     want = {"both": ("7", "8"),
             "all": ("7", "8", "10", "11", "12", "13", "14", "15", "16",
-                    "17")}.get(
+                    "17", "18")}.get(
         args.phase, (args.phase,))
     with tempfile.TemporaryDirectory() as tmp:
         scene, cfg = cs.season_config(dev, tmp, n_epochs=3)
@@ -155,6 +158,28 @@ def main() -> None:
                                    track_px=float("inf"))
             phases.append(("17", lambda: cs.products_path(
                 dev, reset, read, scene, epoches[-1], tmp)))
+        if "18" in want:
+            def training():
+                from icepy4d_tpu_torch.pipeline import Pipeline
+                from torch_port_inputs import REPO_WEIGHTS, StereoSeason
+
+                cfg18 = StereoSeason(480, 640, 640.0).write(
+                    Path(tmp) / "s18", n_epochs=3, options={
+                        "superpoint_weights": str(
+                            REPO_WEIGHTS / "superpoint_synthetic.npz"),
+                        "lightglue_weights": str(
+                            REPO_WEIGHTS / "lightglue_synthetic.npz"),
+                        "activation_dtype": "float32"})
+                Pipeline(cfg18, device="cpu").run()
+                cs.TRAINING = dict(
+                    sp_steps=4, sp_batch=2, sp_cached=2, ha_patches=2,
+                    lg_batches=3, lg_eval=1, lg_batch=2, lg_keypoints=64,
+                    lg_steps=2, ft_batches=1, ft_steps=2,
+                    al_steps=2, al_batch=2, al_batches=2, chunk=2, reps=1)
+                return cs.training_path(dev, reset, read,
+                                        cfg18["paths"]["image_dir"],
+                                        cfg18["paths"]["results_dir"], tmp)
+            phases.append(("18", training))
         for name, run in phases:
             t0 = time.perf_counter()
             try:

@@ -248,3 +248,36 @@ def test_products_raise_without_cuda(no_cuda, tmp_path):
                                       out_dir=tmp_path)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+def test_training_imports_no_jax_and_no_cv2():
+    """Importing the training package (and its command line) loads no
+    JAX, flax, optax or icepy4d_tpu module, and not cv2: only the
+    functions that draw, warp or decode import it."""
+    code = (
+        "import sys\n"
+        "import icepy4d_tpu_torch.training\n"
+        "import icepy4d_tpu_torch.training.__main__\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('cv2',)!r}]\n"
+        "print(bad or 'ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", \
+        (out.stdout, out.stderr)
+
+
+def test_training_entry_points_raise_without_cuda(no_cuda):
+    """The trainers run on the card by default and raise without one."""
+    from icepy4d_tpu_torch.training import (homographic_adaptation,
+                                            homography_to_explicit,
+                                            train_superpoint)
+    from icepy4d_tpu_torch.training.__main__ import main
+
+    ds = {"H": np.zeros((1, 1, 3, 3), np.float32)}
+    for make in (lambda: train_superpoint(steps=1),
+                 lambda: homographic_adaptation({}, [], None),
+                 lambda: homography_to_explicit(ds),
+                 lambda: main(["superpoint", "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()

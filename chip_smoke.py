@@ -223,13 +223,33 @@ anything in it fails:
    runs as the port's inference does: f32 storage, cuDNN convolutions
    in TF32, matmuls in f32 (this script turns matmul TF32 off).
 
+19. batched, multi-process and staged seasons, on phase 7's frames:
+   (a) Pipeline.run_batched(mesh=make_mesh(2)) with phase 7's matcher
+   settings (bundled weights, SEASON_KEYPOINTS, matched full frame and
+   untiled, as run_batched does), groups {0, 1} and {2, 2 repeated},
+   cold and then warm with every launch count set to 0 before it: every
+   epoch ok within BATCHED_GATES, track ids equal across the cameras and
+   unique across the epochs, the NMS and attention launches exactly
+   batched_expected's (one NMS launch an extraction chunk of each side,
+   4 attention launches a layer for each group's one forward), the warm
+   epochs/min printed beside phase 7's warm run(); (b) the same call
+   with SIFT_MATCHING, SIFT_BA and the guided round on the GCP prior:
+   every epoch within BATCHED_SIFT_GATES and no kernel launch; (c)
+   run_distributed() on one process with phase 7's settings (tracking
+   on, dense and checkpoints off, which change no count): statuses,
+   SEASON_COUNTS and track ids equal to phase 7's run(); (d)
+   StagedPipeline(devices=[cuda, cuda]), SuperPoint extraction on one
+   stream and LightGlue on another, over 4 batches of 4 of phase 4's
+   16 tile pairs: outputs bit for bit those of sequential calls, the
+   staged and sequential wall times printed (cold and warm).
+
 Phase 10 runs after phase 5 on its pair and phases 13-15 after it,
 phase 12 after phase 8 on phase 7's frames, phase 16 after it, phase
-17 after it on phase 7's outputs, phase 18 after it, and phase 11
-after those, all before the timing of phase 9; their results are in
-the same JSON line. The kernels line's launches are those of the
-matcher paths of phases 4, 13 and 14 and of phase 18 (the sweep's of
-phase 6).
+19 after it, phase 17 after it on phase 7's outputs, phase 18 after
+it, and phase 11 after those, all before the timing of phase 9; their
+results are in the same JSON line. The kernels line's launches are
+those of the matcher paths of phases 4, 13 and 14, of phase 18 and of
+phase 19 (a)'s warm run (the sweep's of phase 6).
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -274,6 +294,21 @@ SEASON_GATES = {"rmse_px": 0.15, "points": 4500, "rotation_deg": 0.01,
 # (100 putatives, 50 verified).
 SIFT_GATES = {"rmse_px": 0.25, "putative": 5000, "verified": 5000,
               "points": 12000, "rotation_deg": 0.075, "surface_m": 0.15}
+# Gates of every epoch of phase 19's batched seasons, about 3x (20% for
+# the points) off what the first H100 run read. run_batched matches one
+# untiled frame of SEASON_KEYPOINTS keypoints, not phase 7's 2x2 tiles of
+# 4096 each, and keeps the matches that one 128-hypothesis essential
+# RANSAC takes, without verification, tracking or recovery: 2449-2488
+# tie points (SEASON_GATES asks 4500), BA rmse 0.028-0.039 px, relative
+# rotation 0.0021-0.0153 degrees off (SEASON_GATES: 0.01) and 9.5-43 mm
+# to the faces (0.025 m). The SIFT step (512 hypotheses, the guided round
+# on the GCP prior) read 14932-14948 tie points, BA rmse 0.081-0.085 px,
+# 0.0027-0.0147 degrees, 5-28 mm: SIFT_GATES' points and rmse hold, its
+# rotation and distance gates tighten to 3x the reading.
+BATCHED_GATES = {"rmse_px": 0.12, "points": 1950, "rotation_deg": 0.045,
+                 "surface_m": 0.13}
+BATCHED_SIFT_GATES = {"rmse_px": 0.25, "points": 12000, "rotation_deg": 0.045,
+                      "surface_m": 0.085}
 # Gates of every n-camera season epoch (phase 11), about 3x (20% for the
 # points) off what the first H100 run read: BA rmse 0.053-0.078 px,
 # 7621-7782 tie points, the worst slave's rotation relative to the
@@ -803,6 +838,247 @@ def sift_season_path(dev, reset_counts, read_counts, scene,
             raise AssertionError(f"SIFT epoch launched kernels: {c}")
     if len(epochs) != 3 or not all(priors):
         raise AssertionError(f"{len(epochs)} epochs, GCP prior {priors}")
+    return out
+
+
+# -- phase 19: the batched, multi-process and staged seasons ------------------
+
+# Counts that phase 19 (c) holds equal between run_distributed() and
+# phase 7's run(), beside the statuses and the track ids.
+SEASON_COUNTS = ("n_putative", "n_matches", "n_orientation_inliers")
+
+
+def season_summary(epochs, cams) -> list:
+    """Each epoch's status, flags, SEASON_COUNTS and both cameras' track
+    ids."""
+    return [{"status": e.quality["status"], "flags": list(e.quality["flags"]),
+             "counts": [e.quality["stats"].get(k) for k in SEASON_COUNTS],
+             "ids": [e.features[c].track_ids_to_numpy() for c in cams]}
+            for e in epochs]
+
+
+def batched_expected(pipe, b: int, n_epochs: int) -> dict:
+    """The launches of one run_batched over n_epochs in groups of b: per
+    group one NMS launch a SuperPoint call (each side's b frames in the
+    matcher's extraction chunks) and one LightGlue forward over the b
+    pairs (4 attention launches a layer)."""
+    groups = -(-n_epochs // b)
+    chunk = pipe.matcher._extract_chunk(b, H_IMG, W_IMG)
+    return {"nms": groups * 2 * (b // chunk),
+            "attention": groups * 4 * pipe.matcher.matcher.n_layers,
+            "sweep": 0}
+
+
+def run_batched_timed(pipe, mesh, reset_counts, read_counts):
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    epochs = list(pipe.run_batched(mesh=mesh))
+    torch.cuda.synchronize()
+    return epochs, time.perf_counter() - t0, read_counts()
+
+
+def batched_stats(scene, pipe, epochs) -> list:
+    return [dict(st, n_features=len(e.features[pipe.cams[0]]))
+            for st, e in zip(season_stats(scene, pipe, epochs), epochs)]
+
+
+def check_batched(label: str, pipe, epochs, stats, gates: dict,
+                  n_epochs: int) -> None:
+    """Every epoch ok within the gates, track ids equal across the two
+    cameras and unique across the epochs, and only the real epochs."""
+    if len(epochs) != n_epochs:
+        raise AssertionError(f"{label}: {len(epochs)} epochs")
+    for st in stats:
+        check_epoch(st, gates)
+        if st["n_points"] < gates["points"]:
+            raise AssertionError(f"{label}: {st['n_points']} tie points < "
+                                 f"{gates['points']}")
+    ids = []
+    for e in epochs:
+        i0, i1 = (e.features[c].track_ids_to_numpy() for c in pipe.cams)
+        if not np.array_equal(i0, i1):
+            raise AssertionError(f"{label}: track ids differ by camera")
+        ids.append(i0)
+    ids = np.concatenate(ids)
+    if len(np.unique(ids)) != len(ids):
+        raise AssertionError(f"{label}: a track id in two epochs")
+
+
+def batched_path(dev, reset_counts, read_counts, scene, base_cfg: dict,
+                 season_ref: list, season_warm_s: list, img0, img1,
+                 call: dict) -> dict:
+    """Phase 19 (see the module doc). Returns what the JSON line
+    reports; "launches" are (a)'s warm run's."""
+    import copy
+
+    from icepy4d_tpu_torch.parallel import StagedPipeline, make_mesh
+    from icepy4d_tpu_torch.pipeline import Pipeline
+
+    def config(name, **proc):
+        cfg = copy.deepcopy(base_cfg)
+        cfg["paths"]["results_dir"] = str(
+            Path(cfg["paths"]["image_dir"]).parent / name)
+        cfg["proc"].update(save_checkpoints=False, **proc)
+        return cfg
+
+    t_phase = time.perf_counter()
+    n = 3
+    b = 2
+    mesh = make_mesh(b)
+    out = {"mesh": mesh.shape}
+
+    # -- (a) the learned family, cold then warm
+    runs = {}
+    for run in ("cold", "warm"):
+        pipe = Pipeline(config(f"res_batched_{run}"))
+        epochs, run_s, launches = run_batched_timed(pipe, mesh, reset_counts,
+                                                    read_counts)
+        runs[run] = run_s
+    want = batched_expected(pipe, b, n)
+    stats = batched_stats(scene, pipe, epochs)
+    warm_epm = 60.0 * n / runs["warm"]
+    run_epm = 60.0 / float(np.mean(season_warm_s))
+    out["learned"] = {"cold_s": runs["cold"], "warm_s": runs["warm"],
+                      "warm_epochs_per_min": warm_epm,
+                      "season_run_epochs_per_min": run_epm,
+                      "epochs": stats, "launches": launches,
+                      "expected_launches": want}
+    log(f"batched season, LightGlue: {n} epochs of {W_IMG}x{H_IMG} pairs in "
+        f"groups of {b} (mesh {mesh.shape}), untiled, "
+        f"{SEASON_KEYPOINTS} keypoints a frame: cold {runs['cold']:.3f} s, "
+        f"warm {runs['warm']:.3f} s = {warm_epm:.2f} epochs/min (phase 7's "
+        f"warm run() with tiles, tracking and dense: {run_epm:.2f} "
+        f"epochs/min) on {card_line()}; launches {launches}, expected "
+        f"{want}")
+    for st in stats:
+        log(f"  {st['status']} {st['flags']}: step-verified "
+            f"{st['n_features']}, orientation inliers "
+            f"{st['n_orientation_inliers']}, BA rmse "
+            f"{st.get('ba_rmse_px', float('nan')):.4f} px, points "
+            f"{st['n_points']}, relative rotation error "
+            f"{st['rel_rotation_err_deg']:.5f} deg, median surface distance "
+            f"{st['median_surface_dist_m']:.4f} m")
+    check_batched("batched LightGlue", pipe, epochs, stats, BATCHED_GATES, n)
+    if launches != want:
+        raise AssertionError(f"batched launches {launches} != {want}")
+    out["launches"] = launches
+
+    # -- (b) the SIFT family with the guided round on the GCP prior
+    cfg = config("res_batched_sift")
+    cfg["matching"] = copy.deepcopy(SIFT_MATCHING)
+    cfg["ba"] = dict(SIFT_BA)
+    cfg["other"] = {"pydegensac_threshold": 2.0}
+    pipe = Pipeline(cfg)
+    epochs, run_s, launches = run_batched_timed(pipe, mesh, reset_counts,
+                                                read_counts)
+    stats = batched_stats(scene, pipe, epochs)
+    priors = [pipe._gcp_prior(e) is not None for e in epochs]
+    out["sift"] = {"run_s": run_s, "epochs": stats, "launches": launches,
+                   "gcp_prior": priors,
+                   "guided_rounds": pipe.matcher._guided_rounds}
+    log(f"batched season, SIFT with the guided round: run {run_s:.3f} s, "
+        f"GCP prior {priors}, launches {launches}")
+    for st in stats:
+        log(f"  {st['status']} {st['flags']}: step-verified "
+            f"{st['n_features']}, orientation inliers "
+            f"{st['n_orientation_inliers']}, BA rmse "
+            f"{st.get('ba_rmse_px', float('nan')):.4f} px, points "
+            f"{st['n_points']}, relative rotation error "
+            f"{st['rel_rotation_err_deg']:.5f} deg, median surface distance "
+            f"{st['median_surface_dist_m']:.4f} m")
+    check_batched("batched SIFT", pipe, epochs, stats, BATCHED_SIFT_GATES, n)
+    if any(launches.values()) or not all(priors) \
+            or pipe.matcher._guided_rounds < 1:
+        raise AssertionError(f"batched SIFT launches {launches}, prior "
+                             f"{priors}")
+
+    # -- (c) run_distributed() on one process against phase 7's run()
+    pipe = Pipeline(config("res_distributed", do_tracking=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = season_summary(list(pipe.run_distributed()), pipe.cams)
+    dist_s = time.perf_counter() - t0
+    same = len(got) == len(season_ref) and all(
+        g["status"] == r["status"] and g["flags"] == r["flags"]
+        and g["counts"] == r["counts"]
+        and all(np.array_equal(x, y) for x, y in zip(g["ids"], r["ids"]))
+        for g, r in zip(got, season_ref))
+    out["distributed"] = {"run_s": dist_s, "equal_to_run": same,
+                          "counts": [g["counts"] for g in got],
+                          "run_counts": [r["counts"] for r in season_ref]}
+    log(f"run_distributed() on one process: {dist_s:.3f} s, statuses, "
+        f"counts {out['distributed']['counts']} and track ids equal to "
+        f"phase 7's run() ({out['distributed']['run_counts']}): {same}")
+    if not same:
+        raise AssertionError("run_distributed() differs from run()")
+
+    # -- (d) the staged pipeline on two streams of the card
+    from icepy4d_tpu_torch.matching import LightGlueMatcher
+    from icepy4d_tpu_torch.matching.matchers import _preprocess, _to_device
+    from icepy4d_tpu_torch.matching.tiling import Tiler
+    from icepy4d_tpu_torch.ops.image import extract_tiles
+
+    matcher = LightGlueMatcher({"max_keypoints": SEASON_KEYPOINTS})
+    k = matcher._max_keypoints
+    tiles = []
+    for img in (img0, img1):
+        g = _preprocess(_to_device(img, dev), "high")
+        tiler = Tiler(grid=call["grid"], overlap=call["overlap"])
+        tiler.compute_limits_by_grid(np.empty(img.shape[:2]))
+        th, tw = tiler.tile_size
+        tiles.append(extract_tiles(g, tiler.tile_origins(), th, tw))
+    pairs = [(i, j) for i in range(len(tiles[0]))
+             for j in range(len(tiles[1]))]
+    per = len(pairs) // 4
+    batches = [{"im0": tiles[0][[i for i, _ in pairs[q:q + per]]],
+                "im1": tiles[1][[j for _, j in pairs[q:q + per]]]}
+               for q in range(0, len(pairs), per)]
+    size = torch.tensor([tw, th], dtype=torch.float32, device=dev)
+
+    def extract(batch):
+        with torch.inference_mode():
+            return [matcher._extract(batch[s], k) for s in ("im0", "im1")]
+
+    def match(feats):
+        f0, f1 = feats
+        p = f0["keypoints"].shape[0]
+        data = {"kpts0": f0["keypoints"], "desc0": f0["descriptors"],
+                "mask0": f0["mask"], "size0": size.expand(p, 2),
+                "kpts1": f1["keypoints"], "desc1": f1["descriptors"],
+                "mask1": f1["mask"], "size1": size.expand(p, 2)}
+        res = matcher.matcher.match(data)
+        return {"matches0": res["matches0"], "mscores0": res["mscores0"],
+                "kpts0": f0["keypoints"], "kpts1": f1["keypoints"]}
+
+    stage = StagedPipeline(extract, match, devices=[dev, dev])
+    times = {}
+    for run in ("sequential", "staged", "sequential_warm", "staged_warm"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = stage.run(batches) if run.startswith("staged") else \
+            [match(extract(bt)) for bt in batches]
+        torch.cuda.synchronize()
+        times[run] = time.perf_counter() - t0
+        if run == "sequential":
+            ref = res
+        elif run == "staged":
+            staged_out = res
+    equal = len(staged_out) == len(ref) == 4 and all(
+        torch.equal(a[key], r[key]) for a, r in zip(staged_out, ref)
+        for key in r)
+    out["staged"] = {"batches": len(batches), "pairs_a_batch": per,
+                     "times_s": times, "bitwise_equal": equal,
+                     "launches": read_counts()}
+    log(f"staged pipeline, SuperPoint -> LightGlue on two streams of the "
+        f"card, {len(batches)} batches of {per} of phase 4's tile pairs: "
+        f"times {times} s, outputs bitwise equal to sequential calls: "
+        f"{equal}, launches a run {out['staged']['launches']}")
+    if not equal:
+        raise AssertionError("staged outputs differ from sequential calls")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  batched, multi-process and staged seasons: {out['phase_s']:.1f} s")
     return out
 
 
@@ -2783,6 +3059,8 @@ def main() -> None:
         season, season_epoches = season_path(
             dev, reset_counts, read_counts, scene, season_cfg,
             [first, tracked, tracked])
+        season_ref = season_summary(list(season_epoches),
+                                    list(season_epoches[0].features))
         torch.cuda.empty_cache()
         sift_season = sift_season_path(dev, reset_counts, read_counts, scene,
                                        season_cfg)
@@ -2800,6 +3078,13 @@ def main() -> None:
                              + seeded_attention)],
             epoch_seconds(season["stage_times_s"]["0"]))
         tools["exif"] = exif_check(tmp)
+        torch.cuda.empty_cache()
+        # -- 19. the batched, multi-process and staged seasons
+        batched = batched_path(
+            dev, reset_counts, read_counts, scene, season_cfg, season_ref,
+            [epoch_seconds(season["stage_times_s"][k]) for k in ("1", "2")],
+            img0, img1, call)
+        torch.cuda.empty_cache()
         # -- 17. the 4D products on phase 7's clouds, frames and epochs
         products = products_path(dev, reset_counts, read_counts, scene,
                                  season_epoches, tmp)
@@ -2874,7 +3159,8 @@ def main() -> None:
         {"name": "fused_nms_border", "route": "cuda",
          "source": "icepy4d_tpu_torch/csrc/nms.cu",
          "replaces": "icepy4d_tpu/ops/pallas_nms.py:105",
-         "launches": path_launches["nms"] + training["launches"]["nms"],
+         "launches": path_launches["nms"] + training["launches"]["nms"]
+         + batched["launches"]["nms"],
          "max_abs_err": nms_err,
          "ms": nms_ms, "plain_ms": nms_plain_ms, "bound_ms": nms_bound,
          "bound_by": nms_by, "library_ms": None},
@@ -2882,7 +3168,8 @@ def main() -> None:
          "source": "icepy4d_tpu_torch/csrc/attention.cu",
          "replaces": "icepy4d_tpu/ops/attention.py:109",
          "launches": path_launches["attention"]
-         + training["launches"]["attention"], "max_abs_err": att_err,
+         + training["launches"]["attention"]
+         + batched["launches"]["attention"], "max_abs_err": att_err,
          "ms": att_ms, "plain_ms": att_plain_ms, "bound_ms": att_bound,
          "bound_by": att_by, "library_ms": sdpa_ms},
         {"name": "disparity_sweep", "route": "cuda",
@@ -2906,7 +3193,7 @@ def main() -> None:
         "pnp_magsac_resection": pnp, "superglue_path": superglue,
         "extractor_path": extractors, "loftr_semidense_path": loftr,
         "season_tools_path": tools, "products_path": products,
-        "training_path": training},
+        "training_path": training, "batched_path": batched},
         default=str))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -1,7 +1,7 @@
 """Matching engine: tiled SuperPoint + LightGlue or SuperGlue matching,
 SIFT, DISK and ALIKED extractors, nearest-neighbour, semi-dense and
 LoFTR matching, OC template matching, geometric verification and
-temporal tracking."""
+temporal tracking, and the matching IO helpers (`matching.utils`)."""
 
 from icepy4d_tpu_torch.matching.enums import (  # noqa: F401
     GeometricVerification,
@@ -12,6 +12,7 @@ from icepy4d_tpu_torch.matching.geometric_verification import (  # noqa: F401
     geometric_verification,
 )
 from icepy4d_tpu_torch.matching.matchers import (  # noqa: F401
+    FeaturesBase,
     ImageMatcherBase,
     LightGlueMatcher,
     LOFTRMatcher,

@@ -20,6 +20,8 @@ them instead of extracting the same frames again.
 from __future__ import annotations
 
 import logging
+from dataclasses import dataclass
+from functools import partial
 from itertools import product
 from pathlib import Path
 
@@ -43,8 +45,10 @@ from icepy4d_tpu_torch.models.convert import (aliked_params,
                                               bundled_checkpoint, disk_params,
                                               lightglue_params,
                                               load_params, load_torch_disk,
+                                              load_torch_lightglue,
                                               load_torch_loftr,
                                               load_torch_superglue,
+                                              load_torch_superpoint,
                                               loftr_params, superglue_params,
                                               superpoint_state_dict)
 from icepy4d_tpu_torch.models.disk import DISK, disk_tree
@@ -113,18 +117,33 @@ def _cat(outs: list[dict]) -> dict:
     return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
 
 
-def _load_tree(opt: dict, params_key: str, weights_key: str, bundled: str):
-    """Parameter tree (JAX layout) from opt, from an .npz path, or from
-    the repository's bundled checkpoint."""
+def _load_tree(opt: dict, params_key: str, weights_key: str, bundled: str,
+               torch_loader=None):
+    """Parameter tree (JAX layout) from opt, from an .npz path, from a
+    published torch checkpoint through `torch_loader`, or from the
+    repository's bundled checkpoint."""
     if params_key in opt:
         return opt[params_key]
     path = opt.get(weights_key) or bundled_checkpoint(bundled)
     if path is None:
         raise FileNotFoundError(
             f"no {weights_key} given and weights/{bundled} is missing")
-    if not str(path).endswith(".npz"):
+    if str(path).endswith(".npz"):
+        return load_params(path)
+    if torch_loader is None:
         raise ValueError(f"{weights_key} must be an .npz checkpoint")
-    return load_params(path)
+    return torch_loader(path)
+
+
+@dataclass
+class FeaturesBase:
+    """A matcher's feature bundle: keypoints (N, 2) float32 [x, y],
+    descriptors (D, N) (column-major, as the JAX package and its
+    reference keep them) and scores (N,)."""
+
+    keypoints: np.ndarray
+    descriptors: np.ndarray = None
+    scores: np.ndarray = None
 
 
 class ImageMatcherBase:
@@ -176,7 +195,7 @@ class ImageMatcherBase:
         if kind == "superpoint":
             self._sp_state = superpoint_state_dict(_load_tree(
                 opt, "superpoint_params", "superpoint_weights",
-                "superpoint_synthetic.npz"))
+                "superpoint_synthetic.npz", load_torch_superpoint))
         elif kind == "aliked":
             self._sp_state = aliked_params(_load_tree(
                 opt, "superpoint_params", "superpoint_weights",
@@ -681,9 +700,10 @@ class LightGlueMatcher(ImageMatcherBase):
     pruning, f32 trunk, tuned by depth_confidence (0.95) and
     width_confidence (0.99); `adaptive_runs` then holds (layers run,
     capacity) of each pair chunk of the last match),
-    superpoint_weights / lightglue_weights (.npz paths) or
-    superpoint_params / matcher_params (parameter trees in the JAX
-    layout). With no weights given, the repository's bundled
+    superpoint_weights / lightglue_weights (.npz paths, or published
+    torch checkpoints such as superpoint_v1.pth and
+    superpoint_lightglue.pth) or superpoint_params / matcher_params
+    (parameter trees in the JAX layout). With no weights given, the repository's bundled
     checkpoints (weights/*.npz) are loaded; LightGlue over the 128-d
     DISK or ALIKED descriptors then takes random weights from opt
     "seed" (the bundled one takes SuperPoint's).
@@ -710,7 +730,9 @@ class LightGlueMatcher(ImageMatcherBase):
                                   seed=int(opt.get("seed", 0)))
         else:
             tree = _load_tree(opt, "matcher_params", "lightglue_weights",
-                              "lightglue_synthetic.npz")
+                              "lightglue_synthetic.npz",
+                              partial(load_torch_lightglue,
+                                      n_layers=self.matcher.n_layers))
         self.matcher.load_state_dict(lightglue_params(tree))
 
     def _reset(self) -> None:

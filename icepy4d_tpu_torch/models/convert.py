@@ -27,7 +27,11 @@ load.
 the published checkpoints' state dicts (a path or a dict): numpy-only
 copies of the JAX package's key maps (`superglue_params_from_torch`,
 `disk_params_from_torch`, `loftr_params_from_torch`) build the JAX
-tree, which the functions above then load.
+tree, which the functions above then load. `load_torch_superpoint` and
+`load_torch_lightglue` (copies of `superpoint_params_from_torch` and
+`lightglue_params_from_torch`) return the JAX tree itself, as the JAX
+package's loaders of the same name do, so a matcher takes them where it
+takes an `.npz` tree.
 """
 
 from __future__ import annotations
@@ -155,8 +159,11 @@ def superpoint_tree_from_state_dict(state_dict: dict) -> dict:
 
 
 def lightglue_tree_from_state_dict(state_dict: dict) -> dict:
-    """LightGlue state_dict -> the tree `lightglue_params` takes."""
-    return _unflatten(state_dict)
+    """LightGlue state_dict -> the tree `lightglue_params` takes (an
+    identity input projection as an empty input_proj)."""
+    tree = _unflatten(state_dict)
+    tree.setdefault("input_proj", {})
+    return tree
 
 
 def aliked_tree_from_state_dict(state_dict: dict) -> dict:
@@ -225,12 +232,80 @@ def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
 
 
-def _conv1d_as_dense(sd: dict, name: str) -> dict:
-    """Conv1d k=1 (O, I, 1) -> dense {kernel (I, O), bias}."""
-    out = {"kernel": _np(sd[f"{name}.weight"])[..., 0].T}
+def _dense(sd: dict, name: str) -> dict:
+    """Linear (O, I) or Conv1d k=1 (O, I, 1) weight and (O,) bias ->
+    dense {kernel (I, O), bias}."""
+    w = _np(sd[f"{name}.weight"])
+    out = {"kernel": (w[..., 0] if w.ndim == 3 else w).T}
     if f"{name}.bias" in sd:
         out["bias"] = _np(sd[f"{name}.bias"])
     return out
+
+
+_SUPERPOINT_CONVS = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a",
+                     "conv3b", "conv4a", "conv4b", "convPa", "convPb",
+                     "convDa", "convDb")
+
+
+def superpoint_tree_from_torch(state_dict: dict) -> dict:
+    """Published SuperPoint state dict (superpoint_v1.pth: conv1a ...
+    convDb, OIHW weights) -> {"params": {"conv1a": {"kernel" HWIO,
+    "bias"}, ...}}."""
+    return {"params": {n: {
+        "kernel": _np(state_dict[f"{n}.weight"]).transpose(2, 3, 1, 0),
+        "bias": _np(state_dict[f"{n}.bias"])} for n in _SUPERPOINT_CONVS}}
+
+
+def load_torch_superpoint(path_or_state_dict) -> dict:
+    """Published SuperPoint checkpoint -> the JAX-layout tree."""
+    return superpoint_tree_from_torch(_state_dict(path_or_state_dict))
+
+
+def lightglue_tree_from_torch(state_dict: dict, n_layers: int = 9) -> dict:
+    """Published LightGlue state dict -> JAX-layout tree. Keys:
+    input_proj (absent where the projection is the identity: the tree
+    then holds an empty dict), posenc.Wr (no bias; its kernel is the
+    transposed weight), transformers.{i}.self_attn.{Wqkv, out_proj,
+    ffn.{0,1,3}}, transformers.{i}.cross_attn.{to_qk, to_v, to_out,
+    ffn.{0,1,3}} (ffn: dense, layer norm, dense), log_assignment.{i}.
+    {matchability, final_proj} and, for the first n_layers - 1 layers,
+    token_confidence.{i}.token.0."""
+    sd = state_dict
+
+    def ffn(prefix):
+        return {"dense1": _dense(sd, f"{prefix}.0"),
+                "norm": {"scale": _np(sd[f"{prefix}.1.weight"]),
+                         "bias": _np(sd[f"{prefix}.1.bias"])},
+                "dense2": _dense(sd, f"{prefix}.3")}
+
+    tree: dict = {
+        "input_proj": (_dense(sd, "input_proj")
+                       if "input_proj.weight" in sd else {}),
+        "posenc": {"Wr": {"kernel": _np(sd["posenc.Wr.weight"]).T}},
+        "layers": [], "assign": [], "confidence": []}
+    for i in range(n_layers):
+        s, c = f"transformers.{i}.self_attn", f"transformers.{i}.cross_attn"
+        tree["layers"].append({
+            "self_attn": {"Wqkv": _dense(sd, f"{s}.Wqkv"),
+                          "out": _dense(sd, f"{s}.out_proj"),
+                          "ffn": ffn(f"{s}.ffn")},
+            "cross_attn": {"to_qk": _dense(sd, f"{c}.to_qk"),
+                           "to_v": _dense(sd, f"{c}.to_v"),
+                           "out": _dense(sd, f"{c}.to_out"),
+                           "ffn": ffn(f"{c}.ffn")}})
+        tree["assign"].append({
+            "matchability": _dense(sd, f"log_assignment.{i}.matchability"),
+            "final_proj": _dense(sd, f"log_assignment.{i}.final_proj")})
+        if i < n_layers - 1:
+            tree["confidence"].append(
+                {"token": _dense(sd, f"token_confidence.{i}.token.0")})
+    return tree
+
+
+def load_torch_lightglue(path_or_state_dict, n_layers: int = 9) -> dict:
+    """Published LightGlue checkpoint -> the JAX-layout tree."""
+    return lightglue_tree_from_torch(_state_dict(path_or_state_dict),
+                                     n_layers)
 
 
 def superglue_tree_from_torch(state_dict: dict, n_layers: int = 18) -> dict:
@@ -248,7 +323,7 @@ def superglue_tree_from_torch(state_dict: dict, n_layers: int = 18) -> dict:
     def mlp(prefix):
         layers, i = [], 0
         while f"{prefix}.{i}.weight" in sd:
-            layer = {"dense": _conv1d_as_dense(sd, f"{prefix}.{i}")}
+            layer = {"dense": _dense(sd, f"{prefix}.{i}")}
             if f"{prefix}.{i + 1}.running_mean" in sd:
                 layer["bn"] = bn(f"{prefix}.{i + 1}")
                 i += 3
@@ -260,13 +335,13 @@ def superglue_tree_from_torch(state_dict: dict, n_layers: int = 18) -> dict:
     gnn = []
     for li in range(n_layers):
         g = f"gnn.layers.{li}"
-        gnn.append({"q": _conv1d_as_dense(sd, f"{g}.attn.proj.0"),
-                    "k": _conv1d_as_dense(sd, f"{g}.attn.proj.1"),
-                    "v": _conv1d_as_dense(sd, f"{g}.attn.proj.2"),
-                    "merge": _conv1d_as_dense(sd, f"{g}.attn.merge"),
+        gnn.append({"q": _dense(sd, f"{g}.attn.proj.0"),
+                    "k": _dense(sd, f"{g}.attn.proj.1"),
+                    "v": _dense(sd, f"{g}.attn.proj.2"),
+                    "merge": _dense(sd, f"{g}.attn.merge"),
                     "mlp": mlp(f"{g}.mlp")})
     return {"kenc": mlp("kenc.encoder"), "gnn": gnn,
-            "final_proj": _conv1d_as_dense(sd, "final_proj"),
+            "final_proj": _dense(sd, "final_proj"),
             "bin_score": np.float32(_np(sd["bin_score"]))}
 
 

@@ -38,8 +38,10 @@ def normalize_keypoints(kpts: torch.Tensor, size) -> torch.Tensor:
     return (kpts - shift[..., None, :]) / scale[..., None, None]
 
 
-def _linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def _linear(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
     # weights cast to the activation dtype: a bf16 trunk runs bf16 matmuls
+    if isinstance(p, nn.Identity):
+        return x
     bias = None if p.bias is None else p.bias.to(x.dtype)
     return F.linear(x, p.weight.to(x.dtype), bias)
 
@@ -229,6 +231,19 @@ class LightGlue(nn.Module):
             nn.ModuleDict({"token": nn.Linear(d, 1)})
             for _ in range(n_layers - 1))
         self.to(self.device).eval()
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """As nn.Module's; a state dict with no input_proj entries (the
+        published checkpoints, whose projection is the identity when the
+        descriptors are already descriptor_dim wide) makes input_proj
+        the identity, as an empty input_proj does in the JAX package."""
+        proj = self.input_proj
+        if not any(k.startswith("input_proj.") for k in state_dict) \
+                and isinstance(proj, nn.Linear) \
+                and proj.in_features == proj.out_features:
+            self.input_proj = nn.Identity()
+        return super().load_state_dict(state_dict, strict, assign)
 
     @torch.inference_mode()
     def match(self, data: dict, attn=None) -> dict:

@@ -24,8 +24,10 @@ epoch's frames in a worker thread while the current epoch computes;
 
 The config is the JAX `Pipeline`'s: a dict (or a YAML path) with the
 sections paths, proc, matching, georef, ba, quality_gates, recovery,
-dense and other. The multi-device seasons, `run_batched` and
-`run_distributed`, are not ported yet and raise NotImplementedError.
+dense and other. `run_batched` matches B epochs in one batched step
+(`parallel/epoch_step.py`) and orients them one by one;
+`run_distributed` splits the season over the processes of a
+`torch.distributed` group.
 
 Each processed epoch leaves its stage times in `self.stage_times`. The
 matcher, tracking, relative orientation, triangulation, BA and dense
@@ -81,11 +83,6 @@ MATCHERS = {
 _RESECTION_ERRORS = (np.linalg.LinAlgError, torch.linalg.LinAlgError)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to icepy4d_tpu_torch "
-                               "yet")
-
-
 class Pipeline:
     """Config-driven pipeline of a stereo or n-camera season.
 
@@ -127,14 +124,179 @@ class Pipeline:
         self._calib_scale = 1.0
         self.stage_times: dict[int, dict] = {}
         self._stage: dict = {}
+        self._suppress_sinks = False
 
-    # -- unported entry points ----------------------------------------------
+    # -- the batched and multi-process seasons -------------------------------
 
-    def run_batched(self, *args, **kwargs):
-        raise _not_ported("run_batched (the batched season over a mesh)")
+    def run_batched(self, mesh=None, tp: int = 1) -> Epoches:
+        """The season in groups of B epochs, B the mesh's data axis: each
+        group's frames go through one batched step (extraction of each
+        side, one matcher forward over the B pairs, each pair's essential
+        RANSAC and triangulation), then orientation, BA and the sinks
+        run per epoch on the host. Frames are matched full frame at the
+        quality scale, without tiling, tracking, verification or
+        recovery; the last group is padded by repeating its last epoch,
+        and only real epochs are recorded. Takes the lightglue,
+        superglue, sift and nn matchers (ValueError otherwise); the
+        classic ones run 512 hypotheses (matching.options.n_hypotheses)
+        and, with guided_rounds, the epipolar-guided second round on the
+        GCP prior where there is one. Without `mesh`,
+        `make_mesh(tp=tp)` on the pipeline's device: one slot a visible
+        device."""
+        from icepy4d_tpu_torch.matching.enums import QUALITY_SCALE
+        from icepy4d_tpu_torch.matching.matchers import _preprocess
+        from icepy4d_tpu_torch.ops.geometry import scale_intrinsics
+        from icepy4d_tpu_torch.parallel import (make_mesh,
+                                                make_sharded_match_step,
+                                                make_sharded_nn_step)
 
-    def run_distributed(self, *args, **kwargs):
-        raise _not_ported("run_distributed (the multi-process season)")
+        m = self.matcher
+        learned = isinstance(m, (LightGlueMatcher, SuperGlueMatcher))
+        if not (learned or type(m) in (NearestNeighborMatcher, SIFTMatcher)):
+            raise ValueError(
+                "run_batched requires lightglue/superglue/sift/nn")
+        mesh = mesh or make_mesh(tp=tp, device=self.device)
+        b = mesh.shape[mesh.axis_names[0]]
+        proc = self.cfg.get("proc", DotDict())
+        m_cfg = self.cfg.get("matching", DotDict())
+        qname = str(m_cfg.get("quality", "high")).lower()
+        scale = QUALITY_SCALE[Quality[qname.upper()]]
+        todo = proc.get("epoch_to_process", "all")
+        if todo == "all" or todo is None:
+            todo = list(range(len(self.epoch_map)))
+        todo = [e for e in todo if e < len(self.epoch_map)]
+        if not todo:
+            logger.warning("run_batched: no epochs to process")
+            return self.epoches
+        # orientation reads no prior, F or confidences of an earlier match
+        self._epoch_prior = None
+        m._reset()
+
+        sp = m._superpoint(m._max_keypoints)
+        thr = float(self.cfg.get("other", DotDict()).get(
+            "pydegensac_threshold", 2.0))
+        guided = None
+        if not learned and int(getattr(m, "_guided_rounds", 0)) > 0:
+            guided = {"band": float(m._guided_band) * scale,
+                      "ratio": float(m._guided_ratio),
+                      "min_sim": float(m._guided_min_sim)}
+
+        def make_step(h: int, w: int):
+            # the matcher's extraction chunk: B full frames at once
+            # would not fit the activation budget
+            kw = {"threshold_px": thr,
+                  "extract_chunk": m._extract_chunk(b, h, w)}
+            if learned:
+                return make_sharded_match_step(mesh, sp, m.matcher, **kw)
+            return make_sharded_nn_step(
+                mesh, sp, m._nn, guided=guided, n_hypotheses=int(
+                    m_cfg.get("options", {}).get("n_hypotheses", 512)),
+                **kw)
+
+        K0 = K1 = step = None
+        for g0 in range(0, len(todo), b):
+            group = list(range(g0, min(g0 + b, len(todo))))
+            # only this group's frames are decoded and held
+            epochs = {i: self._initialize_epoch(todo[i]) for i in group}
+            if K0 is None:
+                first = epochs[group[0]]
+                K0, K1 = (scale_intrinsics(torch.as_tensor(
+                    np.asarray(first.cameras[c].K), dtype=torch.float32,
+                    device=self.device), scale) for c in self.cams[:2])
+            pad = group + [group[-1]] * (b - len(group))
+            with torch.inference_mode():
+                ims0, ims1 = (torch.stack([
+                    _preprocess(torch.from_numpy(np.ascontiguousarray(
+                        epochs[i].images[c].value)).to(self.device), qname)
+                    for i in pad]) for c in self.cams[:2])
+            if step is None:
+                step = make_step(*ims0.shape[1:])
+            if learned or guided is None:
+                out = step(ims0, ims1, K0, K1)
+            else:
+                # each pair's surveyed prior F, from original pixels to
+                # the match frame (x_match = scale * x): S^T F S with
+                # S = diag(1 / scale, 1 / scale, 1)
+                S = np.diag([1.0 / scale, 1.0 / scale, 1.0])
+                F_prior = np.zeros((b, 3, 3), np.float32)
+                prior_ok = np.zeros((b,), bool)
+                for j, i in enumerate(pad):
+                    pr = self._gcp_prior(epochs[i])
+                    if pr is not None:
+                        F_prior[j] = S.T @ np.asarray(pr[1]) @ S
+                        prior_ok[j] = True
+                out = step(ims0, ims1, K0, K1,
+                           torch.from_numpy(F_prior).to(self.device),
+                           torch.from_numpy(prior_ok).to(self.device))
+            del ims0, ims1
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            for j, i in enumerate(group):
+                epoch = epochs[i]
+                valid = out["valid"][j]
+                mk0 = out["mkpts0"][j][valid] / scale
+                mk1 = out["mkpts1"][j][valid] / scale
+                ids = np.arange(self._next_track_id,
+                                self._next_track_id + len(mk0),
+                                dtype=np.int32)
+                self._next_track_id += len(mk0)
+                for c, mk in ((self.cams[0], mk0), (self.cams[1], mk1)):
+                    feats = Features()
+                    feats.append_features_from_numpy(mk, track_ids=ids)
+                    epoch.features[c] = feats
+                pts3d = self._orient_epoch(epoch)
+                if pts3d is not None and bool(proc.get("do_ba", True)):
+                    pts3d = self._bundle_epoch(epoch, pts3d)
+                self._finalize_epoch(epoch, pts3d)
+                self.epoches.add_epoch(epoch, todo[i])
+            logger.info("batched group %s done", [todo[i] for i in group])
+        return self.epoches
+
+    def run_distributed(self) -> Epoches:
+        """The season split over the processes of a `torch.distributed`
+        group (`parallel.distributed.init_distributed`): each process runs
+        its contiguous shard of the epochs (`partition_epochs`) with the
+        per-epoch flow of run(), checkpoints landing in the shared
+        results directory by epoch. With tracking, a process whose shard
+        does not start the season first processes the epoch before it as
+        a warm seed, with no checkpoint and no CSV rows (its owner
+        records it). The processes' epoch counts are all-gathered at the
+        end. A single process runs the whole season as run() does."""
+        from icepy4d_tpu_torch.parallel.distributed import (
+            all_gather_host, partition_epochs, process_count, process_index)
+
+        proc = self.cfg.get("proc", DotDict())
+        todo = proc.get("epoch_to_process", "all")
+        if todo == "all" or todo is None:
+            todo = list(range(len(self.epoch_map)))
+        shard = partition_epochs(len(todo))
+        mine = [todo[i] for i in shard.indices]
+        logger.info("process %d/%d takes epochs %s", process_index(),
+                    process_count(), mine)
+        prev = None
+        if bool(proc.get("do_tracking", False)) and shard.start > 0:
+            seed_ep = todo[shard.start - 1]
+            logger.info("tracking warm seed: boundary epoch %d (not "
+                        "recorded)", seed_ep)
+            saved = proc.get("save_checkpoints", True)
+            proc["save_checkpoints"] = False
+            self._suppress_sinks = True
+            try:
+                prev = self.process_epoch(seed_ep, None)
+            finally:
+                proc["save_checkpoints"] = saved
+                self._suppress_sinks = False
+        for ep in mine:
+            if ep >= len(self.epoch_map):
+                break
+            epoch = self.process_epoch(ep, prev)
+            self.epoches.add_epoch(epoch, ep)
+            prev = epoch
+        if process_count() > 1:
+            done = all_gather_host({"epochs_done": np.asarray(
+                [len(mine)], np.float32)})
+            logger.info("season summary: per-process epochs %s",
+                        done["epochs_done"].ravel().tolist())
+        return self.epoches
 
     def warmup(self) -> None:
         """One dummy match on zeros at the season's frame shape, quality
@@ -1106,12 +1268,16 @@ class Pipeline:
                 image_points = {
                     c: epoch.features[c].kpts_to_numpy()[:len(pts3d)]
                     for c in self.cams}
-            cameras = {c: epoch.cameras[c] for c in self.cams}
-            write_reprojection_error_to_file(
-                self.results_dir / "residuals_image.csv", epoch.date_str,
-                cameras, pts3d, image_points)
-            write_cameras_to_file(self.results_dir / "estimated_cameras.csv",
-                                  epoch.date_str, cameras)
+            # no rows for the distributed warm-seed epoch: its owner
+            # process writes them
+            if not self._suppress_sinks:
+                cameras = {c: epoch.cameras[c] for c in self.cams}
+                write_reprojection_error_to_file(
+                    self.results_dir / "residuals_image.csv",
+                    epoch.date_str, cameras, pts3d, image_points)
+                write_cameras_to_file(
+                    self.results_dir / "estimated_cameras.csv",
+                    epoch.date_str, cameras)
         if bool(proc.get("save_checkpoints", True)):
             epoch.save_pickle(epoch.epoch_dir / f"{epoch.date_str}.pickle")
 

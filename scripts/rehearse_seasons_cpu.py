@@ -5,10 +5,11 @@ matcher; 11: the n-camera season; 12: PnP, MAGSAC and the stereo season
 with space resection and the match writer; 13: SuperGlue; 14: DISK and
 ALIKED; 15: semi-dense and LoFTR; 16: warmup, watch and the EXIF
 scanner; 17: the 4D products on phase 7's outputs, which it runs first;
-18: training) at a reduced frame size.
+18: training; 19: the batched, multi-process and staged seasons, after
+phase 7) at a reduced frame size.
 
     python3 scripts/rehearse_seasons_cpu.py \
-        [--phase 7|8|10|11|12|13|14|15|16|17|18|both|all]
+        [--phase 7|8|10|11|12|13|14|15|16|17|18|19|both|all]
 
 Runs every stage of the phases on the CPU on 1000x1504 frames (f = 1500
 px, 5 m baseline, 1024 keypoints a tile), in a few minutes ("both" is
@@ -40,7 +41,7 @@ sys.path.insert(0, str(REPO / "tests"))
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("7", "8", "10", "11", "12", "13",
-                                        "14", "15", "16", "17", "18",
+                                        "14", "15", "16", "17", "18", "19",
                                         "both", "all"),
                     default="both")
     args = ap.parse_args()
@@ -48,6 +49,8 @@ def main() -> None:
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.empty_cache = lambda *a, **k: None
     import chip_smoke as cs
+    import icepy4d_tpu_torch.matching.matchers as matchers
+    import icepy4d_tpu_torch.parallel.mesh as mesh
     import icepy4d_tpu_torch.pipeline as pipeline
     from icepy4d_tpu_torch.models import superpoint
     from icepy4d_tpu_torch.ops import attention, dense
@@ -59,7 +62,8 @@ def main() -> None:
     cs.SEMIDENSE_CROP = (504, 752)
     cs.cuda_ms = lambda fn, reps: (fn(), 0.0)[1]   # no timing on the CPU
     cs.card_line = lambda: "CPU rehearsal"
-    pipeline.resolve_device = lambda device=None: torch.device("cpu")
+    for mod in (pipeline, matchers, mesh):
+        mod.resolve_device = lambda device=None: torch.device("cpu")
     counts = {"nms": 0, "attention": 0, "sweep": 0}
 
     def counted(mod, name, key):
@@ -87,7 +91,7 @@ def main() -> None:
     dev = torch.device("cpu")
     want = {"both": ("7", "8"),
             "all": ("7", "8", "10", "11", "12", "13", "14", "15", "16",
-                    "17", "18")}.get(
+                    "17", "18", "19")}.get(
         args.phase, (args.phase,))
     with tempfile.TemporaryDirectory() as tmp:
         scene, cfg = cs.season_config(dev, tmp, n_epochs=3)
@@ -101,11 +105,15 @@ def main() -> None:
         phases = []
         epoches = []
 
-        def season():
-            epoches.append(cs.season_path(dev, reset, read, scene, cfg,
-                                          [first, tracked, tracked])[1])
+        season_out = []
 
-        if "7" in want or "17" in want:
+        def season():
+            out, eps = cs.season_path(dev, reset, read, scene, cfg,
+                                      [first, tracked, tracked])
+            season_out.append(out)
+            epoches.append(eps)
+
+        if "7" in want or "17" in want or "19" in want:
             phases.append(("7", season))
         if "8" in want:
             phases.append(("8", lambda: cs.sift_season_path(
@@ -149,13 +157,16 @@ def main() -> None:
                 cs.season_tools_path(reset, read, cfg, [
                     untracked, dict(untracked, attention=72)], 0.0),
                 cs.exif_check(tmp))))
-        if "17" in want:
-            # phase 17 needs phase 7's outputs: the full-size gates of
-            # phase 7 are not checked here
+        if "17" in want or "19" in want:
+            # phases 17 and 19 need phase 7's outputs: the full-size
+            # gates of phase 7 are not checked here
             cs.check_epoch = lambda st, gates: None
             cs.SEASON_GATES = dict(cs.SEASON_GATES, points=0, dense_points=0,
                                    dense_surface_m=float("inf"),
                                    track_px=float("inf"))
+            cs.BATCHED_GATES = dict(cs.BATCHED_GATES, points=0)
+            cs.BATCHED_SIFT_GATES = dict(cs.BATCHED_SIFT_GATES, points=0)
+        if "17" in want:
             phases.append(("17", lambda: cs.products_path(
                 dev, reset, read, scene, epoches[-1], tmp)))
         if "18" in want:
@@ -180,6 +191,15 @@ def main() -> None:
                                         cfg18["paths"]["image_dir"],
                                         cfg18["paths"]["results_dir"], tmp)
             phases.append(("18", training))
+        if "19" in want:
+            def batched():
+                eps = epoches[-1]
+                ref = cs.season_summary(list(eps), list(eps[0].features))
+                warm = [cs.epoch_seconds(season_out[-1]["stage_times_s"][k])
+                        for k in ("1", "2")]
+                return cs.batched_path(dev, reset, read, scene, cfg, ref,
+                                       warm, img0, img1, call)
+            phases.append(("19", batched))
         for name, run in phases:
             t0 = time.perf_counter()
             try:

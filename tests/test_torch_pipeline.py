@@ -147,9 +147,11 @@ def test_sabotaged_epoch_is_recovered_alike(season):
     _agree(eps, jeps)
 
 
-def test_unported_entry_points_raise(season):
-    """Every matcher of the JAX package's registry builds; only the
-    multi-device seasons still raise."""
+def test_every_entry_point_is_ported(season):
+    """Every matcher of the JAX package's registry builds, and the
+    multi-device seasons exist with the JAX package's parameters."""
+    import inspect
+
     from icepy4d_tpu.pipeline import MATCHERS as JMATCHERS
     from icepy4d_tpu_torch.pipeline import MATCHERS
 
@@ -158,10 +160,13 @@ def test_unported_entry_points_raise(season):
     cfg["matching"] = dict(cfg["matching"], matcher="semidense")
     assert type(Pipeline(cfg, device="cpu").matcher).__name__ \
         == "SemiDenseMatcher"
-    pipe = Pipeline(_cfg(season, "unported"), device="cpu")
     for name in ("run_batched", "run_distributed"):
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(pipe, name)()
+        params = inspect.signature(getattr(Pipeline, name)).parameters
+        jparams = inspect.signature(getattr(JPipeline, name)).parameters
+        assert [(p.name, p.default) for p in params.values()] \
+            == [(p.name, p.default) for p in jparams.values()]
+    assert list(inspect.signature(Pipeline.run_batched).parameters) \
+        == ["self", "mesh", "tp"]
 
 
 def _tracked_per_epoch(eps):

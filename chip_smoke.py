@@ -243,13 +243,46 @@ anything in it fails:
    16 tile pairs: outputs bit for bit those of sequential calls, the
    staged and sequential wall times printed (cold and warm).
 
+20. ring attention and the sequence- and pipeline-parallel matchers
+   (`parallel/`), at the published widths, the sequence axis four slots
+   of the card (make_mesh(4, dp=1, tp=4, axis_names=("data", "seq"))):
+   (a) make_ring_attention at (1, 4, 16384, 64) f32 against
+   ops/attention.py::dense_attention (TF32 off), once with a 0.9
+   padding mask and a whole ring block of keys masked, once with every
+   key masked (every query row fully masked: uniform averages), each
+   within 1.5e-5 of the largest output magnitude, and no attention-kernel
+   launch; (b) phase 4's pair untiled through LightGlueMatcher at 16384
+   keypoints (both full frames, f32 trunk, bundled weights), then
+   make_sequence_parallel_lightglue on those tokens against the dense
+   LightGlue.match over dense_attention (matches0 and matches1 >= 99%
+   of the valid slots equal, mscores within rtol 1e-3 / atol 1e-5 where
+   both match) and over the kernel (>= 98.8%; phase 5's yardstick is
+   98%), and >= 90% of its mutual matches within 1.5 px of the shift; (c)
+   make_sequence_parallel_superglue (SuperGlueMatcher's SuperGlue: 18
+   layers, 20 Sinkhorn iterations, random weights from seed 0, match
+   threshold 0) on the same tokens against the dense SuperGlue.match
+   over dense_attention, (b)'s bars; (d)
+   make_pipeline_parallel_lightglue, 3 stages of 3 layers, on 4 of
+   phase 4's tile pairs at 4096 keypoints in 4 microbatches: exactly
+   144 attention launches a forward (4 x 9 layers x 4 microbatches),
+   >= 99.9% of the match decisions and the log assignment within 1e-3
+   on its valid entries against the dense forward on the same batch;
+   (e) make_pipeline_parallel_loftr_coarse, 4 stages of one pair, on
+   phase 15's first coarse tokens (its first pair chunks, cut to a
+   multiple of 4 tile pairs) against the batched lft_apply, within 4e-5
+   and no kernel launch. Each forward runs cold, then warm, with its
+   warm seconds and peak torch.cuda.max_memory_allocated printed beside
+   the card's name and power limit. SHARDED_GATES holds the gates.
+
 Phase 10 runs after phase 5 on its pair and phases 13-15 after it,
-phase 12 after phase 8 on phase 7's frames, phase 16 after it, phase
-19 after it, phase 17 after it on phase 7's outputs, phase 18 after
-it, and phase 11 after those, all before the timing of phase 9; their
-results are in the same JSON line. The kernels line's launches are
-those of the matcher paths of phases 4, 13 and 14, of phase 18 and of
-phase 19 (a)'s warm run (the sweep's of phase 6).
+phase 20 after those, phase 12 after phase 8 on phase 7's frames, phase
+16 after it, phase 19 after it, phase 17 after it on phase 7's outputs,
+phase 18 after it, and phase 11 after those, all before the timing of
+phase 9; their results are in the same JSON line. The kernels line's
+launches are those of the matcher paths of phases 4, 13 and 14, of
+phase 20 ((b)'s untiled match and dense forward over the kernel, (d)'s
+pipeline), of phase 18 and of phase 19 (a)'s warm run (the sweep's of
+phase 6).
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -2745,6 +2778,330 @@ def training_path(dev, reset_counts, read_counts, image_dir, results_dir,
     return out
 
 
+# -- phase 20: ring attention, the sequence- and pipeline-parallel matchers ----
+
+SHARDED_KEYPOINTS = 16384      # phase 20's full-frame token set a frame
+SHARDED_SLOTS = 4              # sequence shards, all on the card
+PP_LIGHTGLUE_STAGES = 3        # 9 layers / 3
+PP_LOFTR_STAGES = 4            # 4 coarse pairs / 4
+# Gates of phase 20. The ring and the sharded forwards compute in f32
+# what their dense counterparts compute, in other orders. The first H100
+# run (NVIDIA H100 80GB HBM3, 700 W) read: ring attention 3.4e-6 and
+# 4.6e-6 of the largest output off dense_attention (gate 1.5e-5, ~3x);
+# the sequence-parallel LightGlue's and SuperGlue's match decisions all
+# equal to the dense forwards' over dense_attention (gate 0.99, the JAX
+# package's bar), mscores within 0.52 and 0.04 of the rtol 1e-3 / atol
+# 1e-5 bar (kept), LightGlue's 0.9962 equal to the dense forward's over
+# the attention kernel (gate 0.988, ~3x the disagreement; phase 5's
+# yardstick is 0.98) and 0.947 of its mutual matches within 1.5 px of
+# the shift (gate 0.9, phase 4's); the pipeline-parallel LightGlue's
+# matches and log assignment bit for bit the dense forward's (gates
+# 0.999 and 1e-3 kept); the staged LoFTR 1.2e-5 off (gate 4e-5, ~3x).
+SHARDED_GATES = {"ring_rel": 1.5e-5, "sp_agree": 0.99,
+                 "sp_kernel_agree": 0.988, "mscore_rtol": 1e-3,
+                 "mscore_atol": 1e-5, "precision": 0.9, "pp_agree": 0.999,
+                 "pp_logassign": 1e-3, "loftr": 4e-5}
+
+
+def slot_agreement(a: torch.Tensor, b: torch.Tensor,
+                   valid: torch.Tensor) -> float:
+    """Share of the valid slots where the two match decisions agree."""
+    return ((a == b) & valid).sum().item() / max(valid.sum().item(), 1)
+
+
+def hold_matches(label: str, got: dict, ref: dict, data: dict, bar: float,
+                 scores: bool = True) -> dict:
+    """matches0 and matches1 agreement over the valid slots (>= bar) and,
+    with `scores`, mscores0 within the gates' rtol / atol where both
+    match ("mscores_gate": the largest |a - b| / (atol + rtol |b|), <= 1)."""
+    g = SHARDED_GATES
+    agree = {k: slot_agreement(got[f"matches{s}"], ref[f"matches{s}"],
+                               data[f"mask{s}"])
+             for s, k in ((0, "matches0"), (1, "matches1"))}
+    both = (got["matches0"] > -1) & (got["matches0"] == ref["matches0"])
+    a, b = got["mscores0"][both], ref["mscores0"][both]
+    diff = (a - b).abs()
+    rel = (diff / b.abs().clamp_min(1e-12)).max().item() if a.numel() \
+        else 0.0
+    ratio = (diff / (g["mscore_atol"] + g["mscore_rtol"] * b.abs())
+             ).max().item() if a.numel() else 0.0
+    out = dict(agree, mscores_max_rel=rel, mscores_gate=ratio,
+               both_matched=int(both.sum()))
+    log(f"  {label}: agreement matches0 {agree['matches0']:.5f}, matches1 "
+        f"{agree['matches1']:.5f}; {out['both_matched']} matched in both, "
+        f"mscores within {rel:.3e} relative ({ratio:.3f} of the gate)")
+    if min(agree.values()) < bar or not out["both_matched"] \
+            or (scores and ratio > 1.0):
+        raise AssertionError(f"{label}: {out}")
+    return out
+
+
+def timed_forward(fn, data) -> tuple:
+    """fn(data) cold, then warm: (warm output, cold s, warm s, the warm
+    run's peak of torch.cuda.max_memory_allocated, what was allocated
+    before it), in bytes."""
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn(data)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times[0], times[1], torch.cuda.max_memory_allocated(), base
+
+
+def forward_record(label: str, timed: tuple) -> dict:
+    _, cold, warm, peak, base = timed
+    log(f"  {label}: cold {cold:.3f} s, warm {warm:.3f} s, peak "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({base / 2**30:.2f} "
+        f"GiB held before)")
+    return {"cold_s": cold, "warm_s": warm, "peak_gib": peak / 2**30,
+            "base_gib": base / 2**30}
+
+
+def pad_tokens(data: dict, multiple: int) -> dict:
+    """The token dims of a matcher's data padded to a multiple, the
+    padding masked."""
+    n = data["mask0"].shape[1]
+    pad = (-n) % multiple
+    if not pad:
+        return data
+    out = {}
+    for k, v in data.items():
+        if k.startswith("size"):
+            out[k] = v
+        else:
+            widths = [0, 0] * (v.ndim - 2) + [0, pad]
+            out[k] = torch.nn.functional.pad(v, widths)
+    return out
+
+
+def sharded_path(dev, reset_counts, read_counts, img0, img1, tile_pairs: dict,
+                 coarse: tuple, n_tokens: int = SHARDED_KEYPOINTS) -> dict:
+    """Phase 20 (see the module doc). `tile_pairs`: phase 4's first pair
+    chunk cut to 4 pairs; `coarse`: (the coarse LoFTR layers, c0, c1,
+    mask0, mask1) of phase 15's first pair chunks, at least
+    PP_LOFTR_STAGES pairs in all. Returns what the JSON
+    line reports; "launches" are the kernels' launches of the forwards
+    it drives (the input extraction, the dense LightGlue over the kernel
+    and the pipeline-parallel LightGlue)."""
+    from icepy4d_tpu_torch.matching import (GeometricVerification,
+                                            LightGlueMatcher, Quality,
+                                            SuperGlueMatcher, TileSelection)
+    from icepy4d_tpu_torch.models.loftr import LoFTR, lft_apply
+    from icepy4d_tpu_torch.ops.attention import dense_attention
+    from icepy4d_tpu_torch.parallel import (
+        make_mesh, make_pipeline_parallel_lightglue,
+        make_pipeline_parallel_loftr_coarse, make_ring_attention,
+        make_sequence_parallel_lightglue, make_sequence_parallel_superglue)
+
+    g = SHARDED_GATES
+    t_phase = time.perf_counter()
+    card = card_line()
+    seq = make_mesh(SHARDED_SLOTS, dp=1, tp=SHARDED_SLOTS,
+                    axis_names=("data", "seq"))
+    out = {"seq_mesh": seq.shape, "card": card}
+    launches = {"nms": 0, "attention": 0, "sweep": 0}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    log(f"ring attention and the sharded matchers ({SHARDED_SLOTS} "
+        f"sequence slots on {sorted(set(map(str, seq.slots('seq'))))}), on "
+        f"{card}:")
+
+    # -- (a) ring attention against dense_attention, f32, no TF32
+    q, k, v, mask = attention_inputs(1, 4, n_tokens, n_tokens, dev, seed=3)
+    blk = n_tokens // SHARDED_SLOTS
+    mask[:, blk:2 * blk] = False        # one ring block wholly masked
+    ring = make_ring_attention(seq)
+    ring_err = {}
+    for name, m in (("padded", mask), ("all_masked", torch.zeros_like(mask))):
+        reset_counts()
+        got = ring(q, k, v, m)
+        torch.cuda.synchronize()
+        if read_counts()["attention"]:
+            raise AssertionError("ring attention launched the kernel")
+        ref = dense_attention(q, k, v, m)
+        ring_err[name] = ((got - ref).abs().max()
+                          / ref.abs().max()).item()
+        del got, ref
+    ring_ms = cuda_ms(lambda: ring(q, k, v, mask), 3)
+    dense_ms = cuda_ms(lambda: dense_attention(q, k, v, mask), 3)
+    out["ring"] = {"shape": (1, 4, n_tokens, 64), "rel_err": ring_err,
+                   "ms": ring_ms, "dense_attention_ms": dense_ms}
+    log(f"  (a) ring attention (1, 4, {n_tokens}, 64) f32 against "
+        f"dense_attention: {ring_err['padded']:.3e} of the largest output "
+        f"with a 0.9 padding mask and a masked block, "
+        f"{ring_err['all_masked']:.3e} with every key masked (uniform "
+        f"averages); no kernel launch; {ring_ms:.3f} ms against dense "
+        f"{dense_ms:.3f} ms")
+    if max(ring_err.values()) > g["ring_rel"]:
+        raise AssertionError(f"ring attention error {ring_err}")
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+
+    # -- (b) sequence-parallel LightGlue on both full frames
+    matcher = LightGlueMatcher({"max_keypoints": n_tokens,
+                                "activation_dtype": "float32"})
+    reset_counts()
+    matcher.match(img0, img1, quality=Quality.HIGH,
+                  tile_selection=TileSelection.NONE,
+                  geometric_verification=GeometricVerification.PYDEGENSAC,
+                  threshold=1.0)
+    torch.cuda.synchronize()
+    add(read_counts())
+    f0, f1 = matcher._full_feats
+    lg = matcher.matcher
+    size = torch.tensor([[W_IMG, H_IMG]], dtype=torch.float32, device=dev)
+    data = pad_tokens({
+        "kpts0": f0["keypoints"], "desc0": f0["descriptors"],
+        "scores0": f0["scores"], "mask0": f0["mask"], "size0": size,
+        "kpts1": f1["keypoints"], "desc1": f1["descriptors"],
+        "scores1": f1["scores"], "mask1": f1["mask"], "size1": size},
+        SHARDED_SLOTS)
+    n = data["mask0"].shape[1]
+    log(f"  (b) sequence-parallel LightGlue ({lg.n_layers} layers, f32 "
+        f"trunk, bundled weights) on both {W_IMG}x{H_IMG} frames untiled: "
+        f"{n} tokens a frame, {int(data['mask0'].sum())} / "
+        f"{int(data['mask1'].sum())} valid")
+    sp_lg = make_sequence_parallel_lightglue(seq, lg)
+    runs = {"sharded": timed_forward(sp_lg, data),
+            "dense_attention": timed_forward(
+                partial(lg.match, attn=dense_attention), data)}
+    reset_counts()
+    runs["dense_kernel"] = timed_forward(lg.match, data)
+    kernel_counts = read_counts()
+    if kernel_counts["attention"] != 2 * 4 * lg.n_layers:
+        raise AssertionError(f"dense LightGlue launches {kernel_counts}")
+    add({"attention": 4 * lg.n_layers})
+    res = {name: forward_record(f"LightGlue {name}", r)
+           for name, r in runs.items()}
+    sp = runs["sharded"][0]
+    res["vs_dense_attention"] = hold_matches(
+        "sharded vs dense (dense_attention)", sp, runs["dense_attention"][0],
+        data, g["sp_agree"])
+    # the kernel rounds q, k, v and the probabilities to bf16: the match
+    # decisions are held to phase 5's yardstick, the scores not at all
+    res["vs_kernel"] = hold_matches(
+        "sharded vs dense (the attention kernel)", sp,
+        runs["dense_kernel"][0], data, g["sp_kernel_agree"], scores=False)
+    m0 = sp["matches0"][0]
+    hit = m0 > -1
+    err = (data["kpts0"][0][hit] - data["kpts1"][0][m0[hit].long()]
+           - torch.tensor([DX, DY], device=dev)).norm(dim=1)
+    res["mutual_matches"] = int(hit.sum())
+    res["precision"] = (err < 1.5).float().mean().item() if err.numel() \
+        else 0.0
+    log(f"  sharded LightGlue: {res['mutual_matches']} mutual matches, "
+        f"{res['precision']:.4f} within 1.5 px of the ({DX}, {DY}) shift")
+    if res["precision"] < g["precision"]:
+        raise AssertionError(f"sharded LightGlue precision {res['precision']}")
+    out["lightglue_sp"] = res
+    del runs, sp, matcher
+    torch.cuda.empty_cache()
+
+    # -- (c) sequence-parallel SuperGlue on the same tokens and slots
+    sg = SuperGlueMatcher({"seed": 0, "match_threshold": 0.0}).matcher
+    runs = {"sharded": timed_forward(
+                make_sequence_parallel_superglue(seq, sg), data),
+            "dense_attention": timed_forward(
+                partial(sg.match, attn=dense_attention), data)}
+    res = {name: forward_record(
+        f"SuperGlue ({len(sg.gnn)} layers, {sg.sinkhorn_iterations} "
+        f"Sinkhorn iterations, random weights) {name}", r)
+        for name, r in runs.items()}
+    res["vs_dense_attention"] = hold_matches(
+        "sharded vs dense (dense_attention)", runs["sharded"][0],
+        runs["dense_attention"][0], data, g["sp_agree"])
+    out["superglue_sp"] = res
+    del runs, sg, data, f0, f1
+    torch.cuda.empty_cache()
+
+    # -- (d) pipeline-parallel LightGlue over phase 4's tile pairs
+    pp_mesh = make_mesh(PP_LIGHTGLUE_STAGES, dp=PP_LIGHTGLUE_STAGES, tp=1,
+                        axis_names=("pp", "data"))
+    n_micro = tile_pairs["mask0"].shape[0]
+    pp = make_pipeline_parallel_lightglue(pp_mesh, lg, n_micro=n_micro)
+    reset_counts()
+    pp_run = timed_forward(pp, tile_pairs)
+    pp_counts = read_counts()
+    want = 2 * n_micro * 4 * lg.n_layers          # cold and warm
+    dense_run = timed_forward(lg.match, tile_pairs)
+    res = {"stages": PP_LIGHTGLUE_STAGES, "n_micro": n_micro,
+           "batch": tuple(tile_pairs["mask0"].shape),
+           "launches": pp_counts["attention"] // 2,
+           "pipeline": forward_record(
+               f"(d) pipeline-parallel LightGlue, {PP_LIGHTGLUE_STAGES} "
+               f"stages, {n_micro} microbatches of "
+               f"{tuple(tile_pairs['mask0'].shape[1:])} tile pairs", pp_run),
+           "dense": forward_record("LightGlue dense, the same batch",
+                                   dense_run)}
+    got, ref = pp_run[0], dense_run[0]
+    res["agreement"] = slot_agreement(got["matches0"], ref["matches0"],
+                                      tile_pairs["mask0"])
+    la, la_ref = got["log_assignment"], ref["log_assignment"]
+    valid = la_ref > -1e8
+    res["log_assignment_max_abs"] = (la - la_ref)[valid].abs().max().item()
+    res["masked_equal"] = bool(torch.equal(la < -1e8, ~valid))
+    log(f"  pipeline vs dense: matches0 agreement {res['agreement']:.5f}, "
+        f"log assignment within {res['log_assignment_max_abs']:.3e}, "
+        f"attention launches {res['launches']} a forward (want "
+        f"{want // 2})")
+    if pp_counts["attention"] != want or res["agreement"] < g["pp_agree"] \
+            or res["log_assignment_max_abs"] > g["pp_logassign"] \
+            or not res["masked_equal"]:
+        raise AssertionError(f"pipeline-parallel LightGlue: {res}")
+    add({"attention": res["launches"]})
+    out["lightglue_pp"] = res
+    del pp_run, dense_run, got, ref, la, la_ref, lg
+    torch.cuda.empty_cache()
+
+    # -- (e) pipeline-parallel LoFTR coarse transformer on phase 15's tokens
+    layers = coarse[0][0]
+    c0, c1, mask0, mask1 = (torch.cat([c[i] for c in coarse])
+                            for i in range(1, 5))
+    b = c0.shape[0] - c0.shape[0] % PP_LOFTR_STAGES
+    if not b:
+        raise AssertionError(f"phase 15 gave {c0.shape[0]} tile pairs")
+    c0, c1, mask0, mask1 = (t[:b] for t in (c0, c1, mask0, mask1))
+    model = LoFTR(device=dev)
+    model.net.coarse.load_state_dict(layers.state_dict())
+    pp_mesh = make_mesh(PP_LOFTR_STAGES, dp=PP_LOFTR_STAGES, tp=1,
+                        axis_names=("pp", "data"))
+    pp_coarse = make_pipeline_parallel_loftr_coarse(pp_mesh, model)
+    reset_counts()
+    pp_run = timed_forward(lambda x: pp_coarse(*x), (c0, c1, mask0, mask1))
+    if any(read_counts().values()):
+        raise AssertionError("the LoFTR stages launched a kernel")
+
+    def batched(x):
+        with torch.inference_mode():
+            return lft_apply(model.net.coarse, *x, model.nhead)
+
+    dense_run = timed_forward(batched, (c0, c1, mask0, mask1))
+    err = max((a - r).abs().max().item()
+              for a, r in zip(pp_run[0], dense_run[0]))
+    res = {"stages": PP_LOFTR_STAGES, "batch": tuple(c0.shape),
+           "max_abs": err,
+           "pipeline": forward_record(
+               f"(e) pipeline-parallel LoFTR coarse transformer, "
+               f"{PP_LOFTR_STAGES} stages, {b} tile pairs of "
+               f"{c0.shape[1]} coarse tokens", pp_run),
+           "batched": forward_record("batched lft_apply", dense_run)}
+    log(f"  staged vs batched lft_apply: {err:.3e}")
+    if err > g["loftr"]:
+        raise AssertionError(f"pipeline-parallel LoFTR: {res}")
+    out["loftr_pp"] = res
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 20: {out['phase_s']:.1f} s, launches {launches}")
+    return out
+
+
 def main() -> None:
     # -- 1. card ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2966,6 +3323,8 @@ def main() -> None:
     seed_chunk3 = matcher._auto_chunk(12, (k + 1) ** 2 * 4 * 4,
                                       budget=6 << 30)
     seeded_attention3 = 4 * n_layers * (12 // seed_chunk3)
+    # phase 20's pipeline batch: 4 of the first chunk's tile pairs
+    tile_pairs = {name: t[:4] for name, t in data.items()}
     del data, captured, lg32, matcher, heats
     torch.cuda.empty_cache()
 
@@ -2980,11 +3339,36 @@ def main() -> None:
                                call, n_chunks)
     extractors = extractor_path(dev, reset_counts, read_counts, img0, img1,
                                 call)
-    loftr = loftr_semidense_path(dev, reset_counts, read_counts, img0, img1)
-    # the kernels' launches on the main paths: phases 4, 13 and 14
+    from icepy4d_tpu_torch.models import loftr as loftr_module
+    coarse = []                  # the first coarse transformer calls' inputs
+    run_lft = loftr_module.lft_apply
+
+    def capture_coarse(layers, f0, f1, mask0, mask1, nhead):
+        # the match's pair chunks (2 tile pairs each on the card), until
+        # phase 20's stages have a microbatch each
+        if f0.shape[-1] == 256 and (not coarse or (
+                f0.shape[1:] == coarse[0][1].shape[1:]
+                and sum(len(c[1]) for c in coarse) < PP_LOFTR_STAGES)):
+            coarse.append((layers, f0, f1, mask0, mask1))
+        return run_lft(layers, f0, f1, mask0, mask1, nhead)
+
+    loftr_module.lft_apply = capture_coarse
+    try:
+        loftr = loftr_semidense_path(dev, reset_counts, read_counts, img0,
+                                     img1)
+    finally:
+        loftr_module.lft_apply = run_lft
+
+    # -- 20. ring attention, the sequence- and pipeline-parallel matchers ---
+    sharded = sharded_path(dev, reset_counts, read_counts, img0, img1,
+                           tile_pairs, coarse)
+    del tile_pairs, coarse
+    torch.cuda.empty_cache()
+    # the kernels' launches on the main paths: phases 4, 13, 14 and 20
     path_launches = {
         name: launches[name] + superglue["launches"][name]
         + sum(r["launches"][name] for r in extractors.values())
+        + sharded["launches"][name]
         for name in ("nms", "attention")}
 
     # -- 6. dense path ---------------------------------------------------------
@@ -3193,7 +3577,8 @@ def main() -> None:
         "pnp_magsac_resection": pnp, "superglue_path": superglue,
         "extractor_path": extractors, "loftr_semidense_path": loftr,
         "season_tools_path": tools, "products_path": products,
-        "training_path": training, "batched_path": batched},
+        "training_path": training, "batched_path": batched,
+        "sharded_path": sharded},
         default=str))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

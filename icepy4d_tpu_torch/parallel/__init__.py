@@ -1,9 +1,13 @@
-"""Batched, multi-process and staged seasons (counterpart of
-`icepy4d_tpu/parallel/`): a (data, model) grid of device slots, the
-batched epoch steps, the multi-process epoch partition over
-`torch.distributed`, and the two-stage extract/match pipeline on CUDA
-streams. The JAX package's ring attention and its sequence- and
-pipeline-parallel LightGlue, SuperGlue and LoFTR are not ported."""
+"""Device-mesh parallelism (counterpart of `icepy4d_tpu/parallel/`): a
+(data, model) grid of device slots, the batched epoch steps, ring
+attention and the sequence-parallel LightGlue and SuperGlue (tokens
+sharded over an axis), the pipeline-parallel LightGlue and LoFTR coarse
+transformer (layers staged over an axis), the multi-process epoch
+partition over `torch.distributed`, and the two-stage extract/match
+pipeline on CUDA streams. A sharded axis runs its shards in one process
+when its slots name one device (`cuda:0` on one card, the CPU), or one
+shard a process over the process axis of `global_mesh` (one process a
+card under torchrun)."""
 
 from icepy4d_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -14,6 +18,21 @@ from icepy4d_tpu_torch.parallel.mesh import (  # noqa: F401
 from icepy4d_tpu_torch.parallel.epoch_step import (  # noqa: F401
     make_sharded_match_step,
     make_sharded_nn_step,
+)
+from icepy4d_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    make_ring_attention,
+)
+from icepy4d_tpu_torch.parallel.lightglue_sp import (  # noqa: F401
+    make_sequence_parallel_lightglue,
+)
+from icepy4d_tpu_torch.parallel.superglue_sp import (  # noqa: F401
+    make_sequence_parallel_superglue,
+)
+from icepy4d_tpu_torch.parallel.lightglue_pp import (  # noqa: F401
+    make_pipeline_parallel_lightglue,
+)
+from icepy4d_tpu_torch.parallel.loftr_pp import (  # noqa: F401
+    make_pipeline_parallel_loftr_coarse,
 )
 from icepy4d_tpu_torch.parallel.staged import (  # noqa: F401
     StagedPipeline,

@@ -87,7 +87,8 @@ def global_mesh(axis_names=("epoch", "data"), axis_sizes=None) -> Mesh:
     """A mesh of every process's devices, processes on the first axis
     and each process's local devices on the second (the device this
     process joined with: one card, or the CPU). axis_sizes overrides
-    the shape; its product must be the device count."""
+    the shape; its product must be the device count. The first axis as
+    long as the group is the mesh's `process_axis`."""
     local = [_local_device()]
     n_proc = process_count()
     grid = np.empty(n_proc * len(local), dtype=object)
@@ -97,7 +98,11 @@ def global_mesh(axis_names=("epoch", "data"), axis_sizes=None) -> Mesh:
         axis_sizes = (n_proc, len(local))
     if int(np.prod(axis_sizes)) != len(grid):
         raise ValueError(f"{axis_sizes} != {len(grid)} devices")
-    return Mesh(grid.reshape(axis_sizes), tuple(axis_names))
+    # one device a process: the axis as long as the group is the
+    # processes, over which the sharded models' collectives run
+    proc = next((a for a, n in zip(axis_names, axis_sizes) if n == n_proc),
+                None)
+    return Mesh(grid.reshape(axis_sizes), tuple(axis_names), proc)
 
 
 @dataclass(frozen=True)

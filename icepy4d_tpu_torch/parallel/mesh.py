@@ -8,8 +8,9 @@ of one type: on one card every slot names `cuda:0`, and `make_mesh(4)`
 is a batch of four epochs in one forward (the one-card form of the JAX
 tests' eight virtual CPU devices); on several cards each card runs the
 slots that name it. The model axis is accepted and validated as in the
-JAX package, but shards nothing: the port splits no tensor over
-devices.
+JAX package; the sequence- and pipeline-parallel models shard tokens
+and layers over a named axis (`parallel/_ring.py`), whose slots may all
+name one device: there each slot is one shard of a tensor on it.
 """
 
 from __future__ import annotations
@@ -24,10 +25,13 @@ from icepy4d_tpu_torch.device import resolve_device
 
 @dataclass(frozen=True)
 class Mesh:
-    """devices: (dp, tp) object array of torch.device slots."""
+    """devices: (dp, tp) object array of torch.device slots;
+    process_axis: the axis whose slots are the processes of a
+    `torch.distributed` group (set by `global_mesh`), if any."""
 
     devices: np.ndarray
     axis_names: tuple[str, str] = ("data", "model")
+    process_axis: str | None = None
 
     @property
     def shape(self) -> dict[str, int]:

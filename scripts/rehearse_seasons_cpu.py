@@ -6,10 +6,11 @@ with space resection and the match writer; 13: SuperGlue; 14: DISK and
 ALIKED; 15: semi-dense and LoFTR; 16: warmup, watch and the EXIF
 scanner; 17: the 4D products on phase 7's outputs, which it runs first;
 18: training; 19: the batched, multi-process and staged seasons, after
-phase 7) at a reduced frame size.
+phase 7; 20: ring attention and the sequence- and pipeline-parallel
+matchers) at a reduced frame size.
 
     python3 scripts/rehearse_seasons_cpu.py \
-        [--phase 7|8|10|11|12|13|14|15|16|17|18|19|both|all]
+        [--phase 7|8|10|11|12|13|14|15|16|17|18|19|20|both|all]
 
 Runs every stage of the phases on the CPU on 1000x1504 frames (f = 1500
 px, 5 m baseline, 1024 keypoints a tile), in a few minutes ("both" is
@@ -20,7 +21,10 @@ is printed, not raised: at this size the tie-point and rotation gates
 are expected to fail. Phase 18 runs on a 3-epoch 480x640 season of the
 port's Pipeline (about 20 s) at toy sizes (64 keypoints, batches of
 2, a few steps), which checks its control flow
-and launch counts, not its gates on the loss.
+and launch counts, not its gates on the loss. Phase 20 runs on the
+reduced pair with 1024 tokens a frame, phase 4's tile pairs at 1024
+keypoints and LoFTR coarse tokens of four 240x320 crops (random
+weights) in place of phase 15's.
 """
 
 from __future__ import annotations
@@ -42,12 +46,15 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("7", "8", "10", "11", "12", "13",
                                         "14", "15", "16", "17", "18", "19",
-                                        "both", "all"),
+                                        "20", "both", "all"),
                     default="both")
     args = ap.parse_args()
 
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.empty_cache = lambda *a, **k: None
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.memory_allocated = lambda *a, **k: 0
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
     import chip_smoke as cs
     import icepy4d_tpu_torch.matching.matchers as matchers
     import icepy4d_tpu_torch.parallel.mesh as mesh
@@ -91,7 +98,7 @@ def main() -> None:
     dev = torch.device("cpu")
     want = {"both": ("7", "8"),
             "all": ("7", "8", "10", "11", "12", "13", "14", "15", "16",
-                    "17", "18", "19")}.get(
+                    "17", "18", "19", "20")}.get(
         args.phase, (args.phase,))
     with tempfile.TemporaryDirectory() as tmp:
         scene, cfg = cs.season_config(dev, tmp, n_epochs=3)
@@ -200,6 +207,36 @@ def main() -> None:
                 return cs.batched_path(dev, reset, read, scene, cfg, ref,
                                        warm, img0, img1, call)
             phases.append(("19", batched))
+        if "20" in want:
+            # the raw matches' shift precision is gated at full size only;
+            # the CPU's f32 matmuls block differently for one tile pair
+            # and for four, which moves the 9-layer log assignment by
+            # ~1e-2 (the card reads 0)
+            cs.SHARDED_GATES = dict(cs.SHARDED_GATES, precision=0.0,
+                                    pp_logassign=0.1)
+
+            def sharded():
+                from icepy4d_tpu_torch.matching import (LightGlueMatcher,
+                                                        LoFTRMatcher)
+                m = LightGlueMatcher({"max_keypoints": cs.SEASON_KEYPOINTS})
+                pairs = []
+                run_matcher = m._run_matcher
+                m._run_matcher = lambda d: (pairs.append(d),
+                                            run_matcher(d))[1]
+                m.match(img0, img1, **call)
+                tile_pairs = {k: v[:4] for k, v in pairs[0].items()}
+                loftr = LoFTRMatcher({"seed": 0}).matcher
+                crops = [torch.stack([torch.from_numpy(
+                    im[240 * i:240 * (i + 1), :320] / 255.0).float()
+                    for i in range(4)]) for im in (img0, img1)]
+                cells = torch.ones((4, 30 * 40), dtype=torch.bool)
+                with torch.inference_mode():
+                    c0, c1, *_ = loftr.coarse_features(*crops, cells, cells)
+                return cs.sharded_path(
+                    dev, reset, read, img0, img1, tile_pairs,
+                    [(loftr.net.coarse, c0, c1, cells, cells)],
+                    n_tokens=cs.SEASON_KEYPOINTS)
+            phases.append(("20", sharded))
         for name, run in phases:
             t0 = time.perf_counter()
             try:

@@ -1,8 +1,10 @@
 """The multi-process season and the staged pipeline against the JAX
 package: the epoch partition equal for every shape, `all_gather_host`,
 two real gloo processes (collectives and a tracked season split in two),
-`run_distributed` on one process equal to `run`, and `StagedPipeline`
-equal to sequential calls."""
+`run_distributed` on one process equal to `run`, ring attention and the
+sequence- and pipeline-parallel LightGlue across the two processes equal
+to the same calls in one, and `StagedPipeline` equal to sequential
+calls."""
 
 import copy
 import json
@@ -22,9 +24,10 @@ from icepy4d_tpu_torch.models.convert import load_params, superpoint_state_dict
 from icepy4d_tpu_torch.models.superpoint import SuperPointNet
 from icepy4d_tpu_torch.parallel import (EpochShard, StagedPipeline,
                                         all_gather_host, global_mesh,
-                                        partition_epochs, split_devices)
+                                        make_mesh, partition_epochs,
+                                        split_devices)
 from icepy4d_tpu_torch.pipeline import Pipeline
-from torch_port_inputs import REPO_WEIGHTS, StereoSeason
+from torch_port_inputs import REPO_WEIGHTS, StereoSeason, tiny_sharded_runs
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -67,6 +70,7 @@ _WORKER = textwrap.dedent("""
     import json, sys
     from pathlib import Path
     sys.path.insert(0, {repo!r})
+    sys.path.insert(0, {tests!r})
     import numpy as np
     import torch
     torch.set_num_threads(1)
@@ -104,6 +108,13 @@ _WORKER = textwrap.dedent("""
            "matches": [eps[i].quality["stats"]["n_matches"]
                        for i in sorted(eps._epochs)],
            "checkpoints": len(list(res.rglob("*.pickle"))), "rows": rows}}
+
+    # ring attention and the sharded LightGlues, one shard a process
+    from torch_port_inputs import tiny_sharded_runs
+    seq, pp = (global_mesh(axis_names=(name, "data")) for name in ("seq", "pp"))
+    assert seq.process_axis == "seq" and pp.process_axis == "pp"
+    np.savez(Path(sys.argv[2]).parent / f"sharded{{rank}}.npz",
+             **tiny_sharded_runs(seq, pp))
     print("WORKER_OK", json.dumps(out), flush=True)
 """)
 
@@ -127,7 +138,8 @@ def two_processes(tmp_path_factory):
     # a pid-derived port: a fixed one collides with TIME_WAIT sockets
     # when the suite runs again at once
     port = 31000 + (os.getpid() % 900)
-    code = _WORKER.format(repo=str(REPO), port=port)
+    code = _WORKER.format(repo=str(REPO), tests=str(REPO / "tests"),
+                          port=port)
     procs = [subprocess.Popen(
         [sys.executable, "-c", code, str(i), str(root / "cfg.json")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=REPO)
@@ -141,8 +153,9 @@ def two_processes(tmp_path_factory):
             p.kill()
     for i, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"process {i} failed:\n{out[-3000:]}"
-    return [json.loads(out.split("WORKER_OK ", 1)[1].splitlines()[0])
-            for out in outs]
+    return [dict(json.loads(out.split("WORKER_OK ", 1)[1].splitlines()[0]),
+                 sharded=dict(np.load(root / f"sharded{i}.npz")))
+            for i, out in enumerate(outs)]
 
 
 def test_two_process_collectives(two_processes):
@@ -165,6 +178,28 @@ def test_two_process_tracked_season(two_processes):
                           "estimated_cameras.csv": 1}
     # epoch 2 carries the warm seed's tracked features after its matches
     assert p1["features"][0] > p1["matches"][0]
+
+
+def test_two_process_sharded_models_equal_one_process(two_processes):
+    """Ring attention, the sequence-parallel LightGlue and the
+    pipeline-parallel LightGlue over two gloo processes (one shard or
+    stage each; ppermute by send and receive, gathers and broadcasts by
+    collectives) equal the same calls over an in-process axis of two
+    slots: every output in both processes within 1e-6, matches exact."""
+    ref = tiny_sharded_runs(
+        make_mesh(2, dp=1, tp=2, axis_names=("data", "seq"), device="cpu"),
+        make_mesh(2, dp=2, tp=1, axis_names=("pp", "data"), device="cpu"))
+    assert (ref["sp_matches0"] > -1).sum() > 2
+    assert (ref["pp_matches0"] > -1).sum() > 2
+    for proc in two_processes:
+        got = proc["sharded"]
+        assert set(got) == set(ref)
+        for k, v in ref.items():
+            if "matches" in k:
+                np.testing.assert_array_equal(got[k], v, err_msg=k)
+            else:
+                np.testing.assert_allclose(got[k], v, atol=1e-6, rtol=0,
+                                           err_msg=k)
 
 
 def test_run_distributed_single_process_equals_run(tmp_path):

@@ -69,6 +69,72 @@ def lightglue_tree(n_layers: int, d: int, num_heads: int,
     }
 
 
+def keypoint_sets(b: int, n: int, seed: int, scores: bool = False,
+                  size=(640.0, 480.0), dim: int = 256) -> dict:
+    """Two random keypoint sets as the JAX package's sharded-matcher
+    tests draw them: keypoints uniform over the frame, unit descriptors,
+    about 80% of the slots valid, the frame size per pair, and with
+    `scores` SuperPoint-like scores in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    data = {}
+    for s in (0, 1):
+        kpts = rng.uniform(0, size, (b, n, 2)).astype(np.float32)
+        d = rng.normal(size=(b, n, dim)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        data[f"kpts{s}"] = kpts
+        data[f"desc{s}"] = d
+        if scores:
+            data[f"scores{s}"] = rng.uniform(size=(b, n)).astype(np.float32)
+        data[f"mask{s}"] = rng.uniform(size=(b, n)) > 0.2
+        data[f"size{s}"] = np.broadcast_to(
+            np.asarray(size, np.float32), (b, 2)).copy()
+    return data
+
+
+def attention_operands(b: int, h: int, n: int, hd: int, seed: int,
+                       p_keep: float | None = 0.7):
+    """q, k, v (b, h, n, hd) normal and a key mask (b, n) that keeps
+    about p_keep of the keys (None: every key masked)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(b, h, n, hd)).astype(np.float32)
+               for _ in range(3))
+    mask = np.zeros((b, n), bool) if p_keep is None \
+        else rng.uniform(size=(b, n)) > 1.0 - p_keep
+    return q, k, v, mask
+
+
+def tiny_sharded_runs(seq_mesh, pp_mesh) -> dict:
+    """Ring attention, the sequence-parallel LightGlue (over `seq_mesh`'s
+    "seq" axis) and the pipeline-parallel LightGlue (over `pp_mesh`'s
+    "pp" axis) of the port at toy sizes on the CPU: 2 layers, 64-d, 2
+    heads, 16 tokens. Returns their outputs as numpy arrays; run once in
+    each of two processes (the process form) and once in one (the mesh
+    form) they must agree."""
+    import torch
+
+    from icepy4d_tpu_torch.models.convert import lightglue_params
+    from icepy4d_tpu_torch.models.lightglue import LightGlue
+    from icepy4d_tpu_torch.parallel import (make_pipeline_parallel_lightglue,
+                                            make_ring_attention,
+                                            make_sequence_parallel_lightglue)
+
+    def tensors(data):
+        return {k: torch.from_numpy(v) for k, v in data.items()}
+
+    lg = LightGlue(n_layers=2, num_heads=2, descriptor_dim=64, input_dim=64,
+                   filter_threshold=0.0, device="cpu")
+    lg.load_state_dict(lightglue_params(lightglue_tree(2, 64, 2, seed=4)))
+    ops = map(torch.from_numpy, attention_operands(1, 2, 16, 8, seed=2))
+    out = {"ring": make_ring_attention(seq_mesh)(*ops)}
+    sp = make_sequence_parallel_lightglue(seq_mesh, lg)(
+        tensors(keypoint_sets(1, 16, seed=6, dim=64)))
+    pp = make_pipeline_parallel_lightglue(pp_mesh, lg)(
+        tensors(keypoint_sets(2, 16, seed=7, dim=64)))
+    out.update({f"sp_{k}": v for k, v in sp.items()})
+    out.update({f"pp_{k}": v for k, v in pp.items()})
+    return {k: v.numpy() for k, v in out.items()}
+
+
 def shifted_pair(h: int = 312, w: int = 400, seed: int = 21):
     """Band-limited texture (8 px per noise cell) and its (DX, DY)-shifted
     copy: img0[y, x] == img1[y - DY, x - DX]."""

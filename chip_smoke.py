@@ -273,16 +273,38 @@ anything in it fails:
    and no kernel launch. Each forward runs cold, then warm, with its
    warm seconds and peak torch.cuda.max_memory_allocated printed beside
    the card's name and power limit. SHARDED_GATES holds the gates.
+21. command lines, on phase 7's frames and clouds and phase 4's pair:
+   (a) `python -m icepy4d_tpu_torch run_pipeline cfg.yaml` as a
+   subprocess, phase 7's config (tracking, dense) written as YAML over
+   CLI_EPOCHS epochs: exit 0, "processed 2 epochs", and its checkpoints
+   and sinks meet SEASON_GATES (every epoch ok without recovery, BA
+   RMSE, relative rotation, distance to the faces, tie points, dense
+   clouds; a checkpoint, a dense PLY and a sink row an epoch); (b)
+   run_pipeline.main in-process on the same config with the counts set
+   to 0 before: NMS, attention and sweep launches exactly phase 7's for
+   those epochs, and the same gates; (c) build_dem, update_dem,
+   volume_variations, voxelization (with --mesh), extract_section,
+   pcd_rototranslation (both ways) and track_targets in-process on two
+   of phase 17's clouds cut to PRODUCTS_CROP (z-up) and on phase 7's
+   frames, each equal to the library call it wraps on the same input
+   (atomically scattered float32 sums within 8 float32 steps;
+   plot_sections and dynamic_visualization need matplotlib, which this
+   script does not need); (d) the single-epoch walkthrough on phase 7's
+   epoch-0 frames in the asset layout (WALKTHROUGH_GATES) and the
+   matcher benchmark on a SEMIDENSE_CROP centre crop of phase 4's pair
+   (NN's and LightGlue's inliers on the shift; WALKTHROUGH_GATES). Each
+   time is printed beside the card's name and power limit, and the
+   phase's seconds.
 
 Phase 10 runs after phase 5 on its pair and phases 13-15 after it,
 phase 20 after those, phase 12 after phase 8 on phase 7's frames, phase
 16 after it, phase 19 after it, phase 17 after it on phase 7's outputs,
-phase 18 after it, and phase 11 after those, all before the timing of
-phase 9; their results are in the same JSON line. The kernels line's
-launches are those of the matcher paths of phases 4, 13 and 14, of
-phase 20 ((b)'s untiled match and dense forward over the kernel, (d)'s
-pipeline), of phase 18 and of phase 19 (a)'s warm run (the sweep's of
-phase 6).
+phase 21 after it, phase 18 after it, and phase 11 after those, all
+before the timing of phase 9; their results are in the same JSON line.
+The kernels line's launches are those of the matcher paths of phases
+4, 13 and 14, of phase 20 ((b)'s untiled match and dense forward over
+the kernel, (d)'s pipeline), of phase 18, of phase 19 (a)'s warm run
+and of phase 21 (b)'s season (the sweep's of phase 6 and phase 21 (b)).
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -3102,6 +3124,408 @@ def sharded_path(dev, reset_counts, read_counts, img0, img1, tile_pairs: dict,
     return out
 
 
+# -- phase 21: the command lines ---------------------------------------------
+
+CLI_EPOCHS = 2                 # epochs of phase 7's season the commands run
+# Gates of phase 21 (d), about 3x off the first H100 reading (20% under
+# it for the verified matches): the single-epoch walkthrough on phase
+# 7's epoch-0 frames read BA rmse 0.084 px, 6535 verified matches and
+# centres 0.077 m from the surveyed ones (its world is the season's
+# scaled 65x: the walkthrough's centres are 260 m apart, the season's
+# 4 m, so its targets lie 6.5 km off); the matcher benchmark's NN and
+# LightGlue kept 0.959 and 0.928 of their inliers within 1.5 px of the
+# shift (gate: 3x the share off it).
+WALKTHROUGH_GATES = {"rmse_px": 0.25, "verified": 5200, "centre_m": 0.25,
+                     "bench_precision": 0.78}
+
+
+def season_from_checkpoints(res: Path) -> list:
+    from icepy4d_tpu_torch.core import Epoch
+
+    return [Epoch.read_pickle(p) for p in sorted((res / "epochs").rglob(
+        "*.pickle"))]
+
+
+def check_cli_season(label: str, scene, cams, epochs, res: Path) -> list:
+    """Phase 7's gates on a season the command wrote: every epoch ok
+    without recovery, BA RMSE, relative rotation, distance to the faces,
+    tie points, the dense cloud; CLI_EPOCHS checkpoints, dense PLYs and
+    sink rows."""
+    import csv
+    from types import SimpleNamespace
+
+    stats = season_stats(scene, SimpleNamespace(cams=cams), epochs)
+    for st, e in zip(stats, epochs):
+        pts = e.point_cloud.points
+        d = scene.surface_distance(pts[::max(len(pts) // 200000, 1)])
+        st["dense_points"] = len(pts)
+        st["dense_surface_m"] = float(np.median(d))
+        log(f"  {label}: {st['status']} {st['flags']}: putative "
+            f"{st['n_putative']}, verified {st['n_matches']}, BA rmse "
+            f"{st.get('ba_rmse_px', float('nan')):.4f} px, points "
+            f"{st['n_points']}, rotation error "
+            f"{st['rel_rotation_err_deg']:.5f} deg, surface "
+            f"{st['median_surface_dist_m']:.4f} m, dense {len(pts)} points "
+            f"at {st['dense_surface_m']:.4f} m")
+        check_epoch(st, SEASON_GATES)
+        if st["n_points"] < SEASON_GATES["points"] or \
+                st["dense_points"] < SEASON_GATES["dense_points"] or not \
+                st["dense_surface_m"] <= SEASON_GATES["dense_surface_m"]:
+            raise AssertionError(f"{label} epoch below {SEASON_GATES}: {st}")
+    rows = {}
+    for name in ("residuals_image.csv", "estimated_cameras.csv"):
+        with open(res / name) as f:
+            rows[name] = len(list(csv.reader(f)))
+    n_ply = len(list((res / "epochs").rglob("dense_*.ply")))
+    if len(epochs) != CLI_EPOCHS or n_ply != CLI_EPOCHS or any(
+            n != CLI_EPOCHS + 1 for n in rows.values()):
+        raise AssertionError(f"{label}: {len(epochs)} checkpoints, {n_ply} "
+                             f"dense PLYs, sink rows {rows}")
+    return stats
+
+
+def product_commands(dev, root: Path, plys: list) -> dict:
+    """Phase 21 (c): the product commands in-process on two of phase 17's
+    clouds, cut to PRODUCTS_CROP and turned z-up (x' = X, y' = Z,
+    z' = -Y, phase 17's orthophoto frame), each held against the library
+    call it wraps on the same input. Means of float32 sums that the card
+    scatters with atomics, in no fixed order, are held within 8 float32
+    steps of their largest magnitude (DSM elevations; voxel colours
+    within 1e-5, as the CPU tests hold them), volumes within that step
+    times the cells' area; counts, masks, indices, areas and everything
+    else exactly."""
+    import csv
+    import shutil
+
+    from icepy4d_tpu_torch.cli import (build_dem, extract_section,
+                                       pcd_rototranslation, track_targets,
+                                       update_dem, volume_variations,
+                                       voxelization)
+    from icepy4d_tpu_torch.io import read_ply, write_ply
+    from icepy4d_tpu_torch.post_processing import (detect_border,
+                                                   filter_pcd_by_polyline)
+    from icepy4d_tpu_torch.post_processing import (
+        volume_variations as lib_volume_variations)
+    from icepy4d_tpu_torch.post_processing import voxelize
+    from icepy4d_tpu_torch.utils import (Rototranslation, TrackTargets,
+                                         belvedere_loc2utm,
+                                         belvedere_utm2loc, build_dsm,
+                                         dem_of_difference)
+    from icepy4d_tpu_torch.utils.dsm_orthophoto import DSM
+    from torch_port_inputs import SEASON_ORIGIN
+
+    d = root / "cli_products"
+    ins = d / "in"
+    ins.mkdir(parents=True)
+    R = np.array([[1.0, 0, 0], [0, 0, 1], [0, -1, 0]])
+    T = np.eye(4)
+    T[:3, :3] = R
+    T[:3, 3] = -R @ SEASON_ORIGIN
+    loc = Rototranslation(T)
+    poly = np.asarray(PRODUCTS_CROP) + SEASON_ORIGIN[[0, 2]]
+    clouds = []
+    for i, p in enumerate(plys[:2]):
+        pts, rgb = read_ply(p)
+        keep = filter_pcd_by_polyline(pts, poly, dir="x-z")
+        pts = loc.transform(pts[keep]).astype(np.float32)
+        rgb = rgb[keep]
+        write_ply(ins / f"crop_2022_07_{28 + i}.ply", pts, rgb)
+        pts, rgb = read_ply(ins / f"crop_2022_07_{28 + i}.ply")
+        clouds.append((pts, rgb))
+    pattern = str(ins / "crop_*.ply")
+    out, times = {"points": [len(c[0]) for c in clouds]}, {}
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        return r
+
+    def close(a, b, what, atol):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if a.shape != b.shape or not np.allclose(a, b, rtol=0.0, atol=atol,
+                                                 equal_nan=True):
+            raise AssertionError(f"{what}: the command's {a.shape} differs "
+                                 f"from the library's {b.shape} by more "
+                                 f"than {atol}")
+
+    def equal(a, b, what):
+        if not np.array_equal(np.asarray(a), np.asarray(b), equal_nan=(
+                np.asarray(a).dtype.kind == "f")):
+            raise AssertionError(f"{what}: the command differs from the "
+                                 "library")
+
+    # build_dem: the DSM of the first crop
+    step = PRODUCTS_DSM_STEP
+    dsm = run("build_dem", lambda: build_dem.main(
+        [str(ins / "crop_2022_07_28.ply"), "--step", str(step), "--out",
+         str(d / "dem0.npz"), "--geotiff", str(d / "dem0.tif")]))
+    ref = build_dsm(clouds[0][0], dsm_step=step, fill_iters=10, device=dev)
+    z = np.load(d / "dem0.npz")
+    for k in ("mask", "xx", "yy"):
+        equal(z[k], getattr(ref, k), f"build_dem {k}")
+    z_tol = 8 * float(np.spacing(np.float32(np.nanmax(np.abs(ref.z)))))
+    close(z["z"], ref.z, "build_dem z", z_tol)
+    equal(dsm.count, ref.count, "build_dem count")
+    out["build_dem"] = {"cells": int(ref.mask.sum()), "shape": list(
+        ref.z.shape)}
+
+    # update_dem: the second crop's DSM on the first's grid, merged
+    p0 = clouds[0][0][np.isfinite(clouds[0][0]).all(1)]   # build_dsm's
+    lims = [(float(np.floor(p0[:, i].min())), float(np.ceil(p0[:, i].max())))
+            for i in (0, 1)]
+    upd = build_dsm(clouds[1][0], dsm_step=step, fill_iters=10, device=dev,
+                    xlim=lims[0], ylim=lims[1])
+    np.savez_compressed(d / "dem1.npz", z=upd.z, mask=upd.mask, xx=upd.xx,
+                        yy=upd.yy, res=upd.res)
+    merged = run("update_dem", lambda: update_dem.main(
+        [str(d / "dem0.npz"), str(d / "dem1.npz"), "--out",
+         str(d / "merged.npz")]))
+    base = DSM(z=z["z"], mask=z["mask"], xx=z["xx"], yy=z["yy"],
+               res=float(z["res"]))
+    _, rep = dem_of_difference(base, DSM(z=upd.z, mask=upd.mask, xx=upd.xx,
+                                         yy=upd.yy, res=upd.res))
+    equal(merged.z, np.where(upd.mask, upd.z, base.z), "update_dem z")
+    equal(merged.mask, base.mask | upd.mask, "update_dem mask")
+    out["update_dem"] = {"net_m3": rep.net, "area_m2": rep.area}
+
+    # volume_variations over the two crops a day apart
+    df = run("volume_variations", lambda: volume_variations.main(
+        [pattern, "--out", str(d / "vol"), "--tstep", "1", "--grid-step",
+         str(step), "--dir", "z", "--no-plots"]))
+    lib = lib_volume_variations(sorted(ins.glob("crop_*.ply")), t_step=1,
+                                grid_step=step, direction="z", out_dir=None,
+                                base_name="crop", make_plots=False,
+                                device=dev)
+    equal(df[["pcd0", "pcd1"]].to_numpy(), lib[["pcd0", "pcd1"]].to_numpy(),
+          "volume_variations pairs")
+    equal(df[["surface", "matchingPercent"]].to_numpy(),
+          lib[["surface", "matchingPercent"]].to_numpy(),
+          "volume_variations surface")
+    v_tol = 2 * z_tol * float(df["surface"].max())   # both DSMs' steps
+    for col in ("volume", "addedVolume", "removedVolume"):
+        close(df[col], lib[col], f"volume_variations {col}", v_tol)
+    out["volume_variations"] = df[["pcd0", "pcd1", "volume",
+                                   "matchingPercent"]].to_dict("records")
+
+    # voxelization with the cube mesh
+    grids = run("voxelization", lambda: voxelization.main(
+        [pattern, "--voxel-size", str(PRODUCTS_VOXEL), "--out",
+         str(d / "vox"), "--mesh"]))
+    for (pts, rgb), grid in zip(clouds, grids.values()):
+        g = voxelize(pts, rgb, voxel_size=PRODUCTS_VOXEL, device=dev)
+        for k in ("indices", "counts", "centers", "origin"):
+            equal(getattr(grid, k), getattr(g, k), f"voxelization {k}")
+        close(grid.colors, g.colors, "voxelization colours", 1e-5)
+    out["voxelization"] = [len(g.centers) for g in grids.values()]
+
+    # extract_section: the border of each crop
+    masks = run("extract_section", lambda: extract_section.main(
+        [pattern, "--out", str(d / "border"), "--k", str(PRODUCTS_K)]))
+    for (pts, _), mask in zip(clouds, masks.values()):
+        equal(mask, detect_border(pts, k=PRODUCTS_K, device=dev),
+              "extract_section border")
+    out["extract_section"] = [int(m.sum()) for m in masks.values()]
+
+    # pcd_rototranslation both ways
+    for mode, fn in (("loc2utm", belvedere_loc2utm),
+                     ("utm2loc", belvedere_utm2loc)):
+        tdir = d / mode
+        tdir.mkdir()
+        src = tdir / "crop_2022_07_28.ply"
+        shutil.copy(ins / "crop_2022_07_28.ply", src)
+        run(f"pcd_rototranslation {mode}", lambda tdir=tdir, mode=mode:
+            pcd_rototranslation.main([str(tdir / "*.ply"), "--mode", mode]))
+        (moved,) = [p for p in tdir.glob("*.ply") if p != src]
+        equal(read_ply(moved)[0], fn(clouds[0][0]).astype(np.float32),
+              f"pcd_rototranslation {mode}")
+
+    # track_targets: epoch 0's first frame into epochs 1 and 2
+    img = root / "img" / "cam1"
+    master = sorted(img.glob("*.png"))[0]
+    with open(root / "targets" / f"{master.stem}.csv") as f:
+        table = list(csv.DictReader(f))
+    xy0 = np.array([[float(r["x"]), float(r["y"])] for r in table])
+    slaves = sorted(img.glob("*.png"))[1:]
+    got = run("track_targets", lambda: track_targets.main(
+        ["--master", str(master), "--images", str(img / "IMG_100[1-9].png"),
+         "--targets", str(root / "targets" / f"{master.stem}.csv"),
+         "--out", str(d / "targets"),
+         "--template", str(PRODUCTS_TARGETS["template_width"]),
+         "--search", str(PRODUCTS_TARGETS["search_width"]),
+         "--snr", str(PRODUCTS_TARGETS["snr_threshold"])]))
+    want = TrackTargets(master, slaves, xy0,
+                        out_dir=d / "targets_lib",
+                        target_names=[r["label"] for r in table],
+                        device=dev, **PRODUCTS_TARGETS).track()
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"track_targets images {sorted(got)}")
+    for stem in want:
+        equal(got[stem]["ok"], want[stem]["ok"], "track_targets ok")
+        if not np.allclose(got[stem]["xy"], want[stem]["xy"], atol=1e-3,
+                           equal_nan=True):
+            raise AssertionError("track_targets positions")
+    out["track_targets"] = {k: int(v["ok"].sum()) for k, v in got.items()}
+    out["times_s"] = times
+    shown = {k: v for k, v in out.items() if k != "times_s"}
+    log(f"  product commands on crops of {out['points']} points, equal to "
+        f"the library: {json.dumps(shown)}")
+    log(f"  times on {card_line()}: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()))
+    return out
+
+
+def commands_path(dev, reset_counts, read_counts, scene, base_cfg: dict,
+                  season: dict, root, img0, img1) -> dict:
+    """Phase 21: the command lines a user starts the port with, on phase
+    7's frames and clouds and phase 4's pair. (a) `python -m
+    icepy4d_tpu_torch run_pipeline cfg.yaml` as a subprocess over
+    CLI_EPOCHS epochs of phase 7's config: its checkpoints and sinks meet
+    phase 7's gates; (b) `run_pipeline.main` in-process on the same
+    config with the counts set to 0 before: its NMS, attention and sweep
+    launches are phase 7's for those epochs, exactly; (c) the product
+    commands on phase 17's clouds (`product_commands`); (d) the
+    single-epoch walkthrough on phase 7's epoch-0 frames in the asset
+    layout and the matcher benchmark on phase 4's pair (a SEMIDENSE_CROP
+    centre crop: whole-frame tiles exceed LoFTR's coarse-token cap),
+    held to WALKTHROUGH_GATES.
+    plot_sections and dynamic_visualization draw with matplotlib, which
+    this script does not need (as phase 17): they run in the CPU tests
+    only."""
+    import copy
+
+    import cv2
+    import yaml
+
+    from icepy4d_tpu_torch.cli import run_pipeline
+    from icepy4d_tpu_torch.examples import (matching_benchmark,
+                                            single_epoch_stereo)
+
+    root = Path(root)
+    t_phase = time.perf_counter()
+    cams = ["cam1", "cam2"]
+    out = {"card": card_line()}
+
+    def config(name: str) -> Path:
+        cfg = copy.deepcopy(base_cfg)
+        cfg["paths"]["results_dir"] = name       # relative to the file
+        cfg["proc"].update(do_tracking=True, do_dense=True,
+                           epoch_to_process=[0, CLI_EPOCHS - 1])
+        path = root / f"{name}.yaml"
+        path.write_text(yaml.safe_dump(json.loads(json.dumps(cfg))))
+        return path
+
+    # (a) the season command as a user starts it
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "icepy4d_tpu_torch", "run_pipeline",
+         str(config("res_cli"))], cwd=REPO, capture_output=True, text=True,
+        timeout=900)
+    out["subprocess_s"] = time.perf_counter() - t0
+    if proc.returncode != 0 or proc.stdout.strip().splitlines()[-1:] != [
+            f"processed {CLI_EPOCHS} epochs"]:
+        raise AssertionError(f"run_pipeline exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    log(f"command line: python -m icepy4d_tpu_torch run_pipeline on "
+        f"{CLI_EPOCHS} epochs: exit 0 in {out['subprocess_s']:.1f} s "
+        f"(a new process: imports, weights and the cold epoch) on "
+        f"{out['card']}")
+    res = root / "res_cli"
+    out["subprocess_epochs"] = check_cli_season(
+        "subprocess", scene, cams, season_from_checkpoints(res), res)
+
+    # (b) in-process, launches counted
+    want = {k: sum(c[k] for c in season["launches"][:CLI_EPOCHS])
+            for k in season["launches"][0]}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    epochs = list(run_pipeline.main([str(config("res_cli_inproc"))]))
+    torch.cuda.synchronize()
+    out["inprocess_s"] = time.perf_counter() - t0
+    out["launches"] = read_counts()
+    log(f"  in-process run_pipeline.main: {out['inprocess_s']:.1f} s, "
+        f"launches {out['launches']} (phase 7's epochs 0-{CLI_EPOCHS - 1}: "
+        f"{want})")
+    if out["launches"] != want:
+        raise AssertionError(f"run_pipeline launches {out['launches']} != "
+                             f"{want}")
+    out["inprocess_epochs"] = check_cli_season(
+        "in-process", scene, cams, epochs, root / "res_cli_inproc")
+
+    # (c) the product commands
+    plys = sorted((root / "res_lightglue").rglob("dense_*.ply"))
+    out["products"] = product_commands(dev, root, plys)
+
+    # (d) the walkthroughs
+    assets = root / "assets"
+    frames = [cv2.imread(str(sorted((root / "img" / c).glob("*.png"))[0]),
+                         cv2.IMREAD_GRAYSCALE) for c in cams]
+    scene.write_assets(assets, single_epoch_stereo.CENTERS,
+                       single_epoch_stereo.TARGETS, frames=frames)
+    del frames
+    verified = []
+    from icepy4d_tpu_torch.matching import NearestNeighborMatcher
+    run_match = NearestNeighborMatcher.match
+
+    def record(self, *a, **kw):
+        r = run_match(self, *a, **kw)
+        verified.append(len(self.mkpts0))
+        return r
+
+    NearestNeighborMatcher.match = record
+    try:
+        t0 = time.perf_counter()
+        ba = single_epoch_stereo.main(["--assets", str(assets), "--out",
+                                       str(root / "single_epoch")])
+        torch.cuda.synchronize()
+    finally:
+        NearestNeighborMatcher.match = run_match
+    centre_err = {c: float(np.linalg.norm(np.asarray(ba.cameras[c].C).ravel()
+                                          - xyz)) for c, xyz in zip(
+        cams, single_epoch_stereo.CENTERS)}
+    out["single_epoch_stereo"] = {
+        "s": time.perf_counter() - t0, "verified": verified[0],
+        "points": len(ba.points), "ba_ok": ba.ok,
+        "rmse_px": ba.reprojection_rmse_px, "centre_err_m": centre_err}
+    log(f"  single_epoch_stereo on phase 7's epoch-0 frames: "
+        f"{out['single_epoch_stereo']}")
+    if not (ba.ok and ba.reprojection_rmse_px <= WALKTHROUGH_GATES["rmse_px"]
+            and verified[0] >= WALKTHROUGH_GATES["verified"]
+            and max(centre_err.values()) <= WALKTHROUGH_GATES["centre_m"]):
+        raise AssertionError(f"single_epoch_stereo: "
+                             f"{out['single_epoch_stereo']}")
+
+    h, w = SEMIDENSE_CROP
+    y0, x0 = (H_IMG - h) // 2, (W_IMG - w) // 2
+    bench = root / "bench_assets"
+    for cam, im in zip(cams, (img0, img1)):
+        (bench / "img" / cam).mkdir(parents=True)
+        cv2.imwrite(str(bench / "img" / cam / "IMG_0.png"),
+                    im[y0:y0 + h, x0:x0 + w])
+    mdir = root / "bench_matches"
+    out["matching_benchmark"] = matching_benchmark.main(
+        ["--assets", str(bench), "--out", str(mdir)])
+    precision = {}
+    for name in ("NearestNeighbor", "LightGlue"):
+        mk0, mk1 = (np.loadtxt(mdir / name / f"keypoints_{i}.txt",
+                               delimiter=",", ndmin=2) for i in (0, 1))
+        err = np.linalg.norm(mk0 - mk1 - [DX, DY], axis=1)
+        precision[name] = float((err < 1.5).mean()) if len(err) else 0.0
+    out["matching_benchmark_precision"] = precision
+    log(f"  matching_benchmark on phase 4's {w}x{h} centre crop: "
+        f"{out['matching_benchmark']}; ground-truth precision {precision}")
+    if not all(p >= WALKTHROUGH_GATES["bench_precision"]
+               for p in precision.values()):
+        raise AssertionError(f"matching_benchmark precision {precision}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  command-line path: {out['phase_s']:.1f} s on {out['card']}")
+    return out
+
+
 def main() -> None:
     # -- 1. card ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3272,6 +3696,20 @@ def main() -> None:
     if launches["attention"] != 4 * n_layers * len(captured):
         raise AssertionError(f"attention kernel launched "
                              f"{launches['attention']} times")
+    # the FLOPs the warm match executes in SuperPoint's convolutions (8
+    # tiles of the heat map's padded shape) and LightGlue's matmuls (its
+    # pair chunks' padded keypoint sets): the yardstick of a share of
+    # the card's peak
+    from icepy4d_tpu_torch.models import SuperPoint
+    match_flops = {
+        "superpoint": SuperPoint(max_keypoints=1).extract_flops(
+            *nms_shape[1:], batch=8),
+        "lightglue": sum(matcher.matcher.match_flops(
+            d["mask0"].shape[0], d["mask0"].shape[1], d["mask1"].shape[1])
+            for d in captured)}
+    log(f"  executed FLOPs of the match: {match_flops} = "
+        f"{sum(match_flops.values()) / times['warm'] / 1e12:.2f} TFLOP/s "
+        f"over the warm match on {card}")
     # the seeded forward of a tracked epoch: both cameras' 2 x 2 tiles as
     # 8 tile-diagonal pairs, in the matcher's pair chunks
     k = matcher._max_keypoints
@@ -3472,7 +3910,13 @@ def main() -> None:
         # -- 17. the 4D products on phase 7's clouds, frames and epochs
         products = products_path(dev, reset_counts, read_counts, scene,
                                  season_epoches, tmp)
-        del scene, season_epoches
+        del season_epoches
+        torch.cuda.empty_cache()
+        # -- 21. the command lines on phase 7's frames and clouds, phase
+        # 4's pair
+        commands = commands_path(dev, reset_counts, read_counts, scene,
+                                 season_cfg, season, tmp, img0, img1)
+        del scene
         torch.cuda.empty_cache()
         # -- 18. training on phase 7's frames and epochs
         training = training_path(dev, reset_counts, read_counts,
@@ -3544,7 +3988,7 @@ def main() -> None:
          "source": "icepy4d_tpu_torch/csrc/nms.cu",
          "replaces": "icepy4d_tpu/ops/pallas_nms.py:105",
          "launches": path_launches["nms"] + training["launches"]["nms"]
-         + batched["launches"]["nms"],
+         + batched["launches"]["nms"] + commands["launches"]["nms"],
          "max_abs_err": nms_err,
          "ms": nms_ms, "plain_ms": nms_plain_ms, "bound_ms": nms_bound,
          "bound_by": nms_by, "library_ms": None},
@@ -3553,18 +3997,21 @@ def main() -> None:
          "replaces": "icepy4d_tpu/ops/attention.py:109",
          "launches": path_launches["attention"]
          + training["launches"]["attention"]
-         + batched["launches"]["attention"], "max_abs_err": att_err,
+         + batched["launches"]["attention"]
+         + commands["launches"]["attention"], "max_abs_err": att_err,
          "ms": att_ms, "plain_ms": att_plain_ms, "bound_ms": att_bound,
          "bound_by": att_by, "library_ms": sdpa_ms},
         {"name": "disparity_sweep", "route": "cuda",
          "source": "icepy4d_tpu_torch/csrc/sweep.cu",
          "replaces": "icepy4d_tpu/ops/pallas_sweep.py:196",
-         "launches": dense_launches["sweep"], "max_abs_err": sweep_err,
+         "launches": dense_launches["sweep"] + commands["launches"]["sweep"],
+         "max_abs_err": sweep_err,
          "ms": sweep_ms, "plain_ms": sweep_plain_ms, "bound_ms": sweep_bound,
          "bound_by": sweep_by, "library_ms": None},
     ]
     log(json.dumps({"main_path": {
         "warm_s": times["warm"], "cold_s": times["cold"], "stages_s": stages,
+        "flops": match_flops,
         "putative": n_put, "inliers": n_inl, "precision": precision,
         "lightglue_agreement": agree, "agreement_yardstick": yardstick},
         "dense_path": {
@@ -3578,7 +4025,7 @@ def main() -> None:
         "extractor_path": extractors, "loftr_semidense_path": loftr,
         "season_tools_path": tools, "products_path": products,
         "training_path": training, "batched_path": batched,
-        "sharded_path": sharded},
+        "sharded_path": sharded, "commands_path": commands},
         default=str))
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -124,6 +124,11 @@ class Points:
     def filter_point_by_index(self, indexes) -> None:
         self._select(np.asarray(indexes, np.int64).reshape(-1))
 
+    def to_point_cloud(self):
+        from icepy4d_tpu_torch.core.point_cloud import PointCloud
+
+        return PointCloud(points3d=self._xyz, points_col=self._color)
+
     def to_padded(self, capacity: int | None = None,
                   device=None) -> PointSet:
         return PointSet.from_arrays(self._xyz, color=self._color,

@@ -35,3 +35,24 @@ def full_f32_matmul():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` gives them (a card below its
+    maximum limit runs slower under load, so a time is printed beside
+    it); "cpu" for the CPU."""
+    import subprocess
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={index}"],
+            capture_output=True, text=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    return out or f"{torch.cuda.get_device_name(dev)}, power limit not read"

@@ -4,8 +4,9 @@ one tensor (counterpart of `icepy4d_tpu/matching/tiling.py`)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from icepy4d_tpu_torch.ops.image import compute_tile_limits
+from icepy4d_tpu_torch.ops.image import compute_tile_limits, extract_tiles
 
 
 class Tiler:
@@ -65,3 +66,13 @@ class Tiler:
     def tile_origins(self) -> np.ndarray:
         """(T, 2) int32 [x0, y0] per tile (row-major)."""
         return self._origins_np
+
+    def extract_patch(self, image, limits) -> np.ndarray:
+        """Host-side crop of one tile, limits (xmin, ymin, xmax, ymax)."""
+        return np.asarray(image)[limits[1]: limits[3], limits[0]: limits[2]]
+
+    def extract_all(self, image) -> torch.Tensor:
+        """Every tile of `image` (H, W[, C]) in one gather on its device:
+        (T, th, tw[, C]). A numpy image is taken as a CPU tensor."""
+        th, tw = self._tile_size
+        return extract_tiles(torch.as_tensor(image), self._origins_np, th, tw)

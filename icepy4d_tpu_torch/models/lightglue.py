@@ -245,6 +245,26 @@ class LightGlue(nn.Module):
             self.input_proj = nn.Identity()
         return super().load_state_dict(state_dict, strict, assign)
 
+    def match_flops(self, batch: int, m: int, n: int | None = None) -> float:
+        """Matmul FLOPs of one `match` over (batch, m, n) padded keypoint
+        sets (2 * m * n * k a product; softmax, rotary, layer norm and
+        the elementwise work left out), the JAX package's formula: the
+        input projection (none when it is the identity, as after a state
+        dict without input_proj), per layer the self block (Wqkv, out,
+        the FFN and attention of each side) and the cross block (to_qk,
+        to_v, out, the FFN, both attention directions), then the
+        assignment head."""
+        n = m if n is None else n
+        d = self.layers[0].self_attn.out.in_features
+        L = self.n_layers
+        s = float(m + n)
+        p = self.input_proj
+        proj = 0.0 if isinstance(p, nn.Identity) else 2 * s * p.in_features * d
+        self_b = 20 * d * d * s + 4 * d * (float(m) * m + float(n) * n)
+        cross_b = 18 * s * d * d + 8 * float(m) * n * d
+        assign = 2 * s * d * d + 2 * float(m) * n * d + 2 * s * d
+        return float(batch * (proj + L * (self_b + cross_b) + assign))
+
     @torch.inference_mode()
     def match(self, data: dict, attn=None) -> dict:
         """`attn` replaces the attention of every block (the default is

@@ -150,6 +150,33 @@ class SuperPoint:
         self.net.load_state_dict(state_dict)
         return self
 
+    def extract_flops(self, h: int, w: int, batch: int = 1) -> float:
+        """Convolution FLOPs one `extract` of (batch, h, w) frames
+        executes: 2 * Cin * Cout * k^2 for each output pixel of every
+        convolution, on the frame padded to the 8-px cell grid (NMS,
+        top-K, sampling and the elementwise work are left out).
+
+        The JAX package's `extract_flops` counts its full-resolution
+        conv1a / conv1b in the space-to-depth form it runs on the TPU,
+        which executes 4x the pixel-space MACs; here they are plain 3x3
+        convolutions, so the count is lower by 3 * (2 * c1 * 9 + 2 * c1
+        * c1 * 9) a pixel (169,608 against 394,248 FLOP a pixel at the
+        default widths)."""
+        n = self.net
+        c1, c2, c3, c4 = (n.conv1a.out_channels, n.conv2a.out_channels,
+                          n.conv3a.out_channels, n.conv4a.out_channels)
+        dp, dd = n.convPa.out_channels, n.convDb.out_channels
+        cells = -(-h // 8) * -(-w // 8)           # (H/8) * (W/8), padded
+        per_cell = (
+            64 * (2 * 1 * c1 * 9 + 2 * c1 * c1 * 9)     # conv1a/b, H
+            + 16 * (2 * c1 * c2 * 9 + 2 * c2 * c2 * 9)  # conv2a/b, H/2
+            + 4 * (2 * c2 * c3 * 9 + 2 * c3 * c3 * 9)   # conv3a/b, H/4
+            + (2 * c3 * c4 * 9 + 2 * c4 * c4 * 9)       # conv4a/b, H/8
+            + (2 * c4 * dp * 9 + 2 * dp * 65)           # convPa/Pb
+            + (2 * c4 * dp * 9 + 2 * dp * dd)           # convDa/Db
+        )
+        return float(batch * cells * per_cell)
+
     @torch.inference_mode()
     def extract(self, images: torch.Tensor) -> dict:
         """images: (B, H, W) or (B, H, W, 1) grayscale in [0, 1].

@@ -7,10 +7,11 @@ ALIKED; 15: semi-dense and LoFTR; 16: warmup, watch and the EXIF
 scanner; 17: the 4D products on phase 7's outputs, which it runs first;
 18: training; 19: the batched, multi-process and staged seasons, after
 phase 7; 20: ring attention and the sequence- and pipeline-parallel
-matchers) at a reduced frame size.
+matchers; 21: the command lines, after phase 7) at a reduced frame
+size.
 
     python3 scripts/rehearse_seasons_cpu.py \
-        [--phase 7|8|10|11|12|13|14|15|16|17|18|19|20|both|all]
+        [--phase 7|8|10|11|12|13|14|15|16|17|18|19|20|21|both|all]
 
 Runs every stage of the phases on the CPU on 1000x1504 frames (f = 1500
 px, 5 m baseline, 1024 keypoints a tile), in a few minutes ("both" is
@@ -24,7 +25,8 @@ port's Pipeline (about 20 s) at toy sizes (64 keypoints, batches of
 and launch counts, not its gates on the loss. Phase 20 runs on the
 reduced pair with 1024 tokens a frame, phase 4's tile pairs at 1024
 keypoints and LoFTR coarse tokens of four 240x320 crops (random
-weights) in place of phase 15's.
+weights) in place of phase 15's. Phase 21's subprocess gets `--device
+cpu` appended (a new process sees none of these patches).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("7", "8", "10", "11", "12", "13",
                                         "14", "15", "16", "17", "18", "19",
-                                        "20", "both", "all"),
+                                        "20", "21", "both", "all"),
                     default="both")
     args = ap.parse_args()
 
@@ -69,8 +71,25 @@ def main() -> None:
     cs.SEMIDENSE_CROP = (504, 752)
     cs.cuda_ms = lambda fn, reps: (fn(), 0.0)[1]   # no timing on the CPU
     cs.card_line = lambda: "CPU rehearsal"
-    for mod in (pipeline, matchers, mesh):
+    import icepy4d_tpu_torch.cli as cli
+    import icepy4d_tpu_torch.examples as examples
+
+    commands = [__import__(f"icepy4d_tpu_torch.cli.{c}", fromlist=["main"])
+                for c in cli.COMMANDS]
+    walkthroughs = [__import__(f"icepy4d_tpu_torch.examples.{c}",
+                               fromlist=["main"]) for c in (
+        "single_epoch_stereo", "multitemporal_4d", "matching_benchmark")]
+    del examples
+    for mod in (pipeline, matchers, mesh, *commands, *walkthroughs):
         mod.resolve_device = lambda device=None: torch.device("cpu")
+    run_process = cs.subprocess.run
+
+    def on_cpu(cmd, *a, **k):
+        if "run_pipeline" in cmd:
+            cmd = [*cmd, "--device", "cpu"]
+        return run_process(cmd, *a, **k)
+
+    cs.subprocess.run = on_cpu
     counts = {"nms": 0, "attention": 0, "sweep": 0}
 
     def counted(mod, name, key):
@@ -98,7 +117,7 @@ def main() -> None:
     dev = torch.device("cpu")
     want = {"both": ("7", "8"),
             "all": ("7", "8", "10", "11", "12", "13", "14", "15", "16",
-                    "17", "18", "19", "20")}.get(
+                    "17", "18", "19", "20", "21")}.get(
         args.phase, (args.phase,))
     with tempfile.TemporaryDirectory() as tmp:
         scene, cfg = cs.season_config(dev, tmp, n_epochs=3)
@@ -120,7 +139,7 @@ def main() -> None:
             season_out.append(out)
             epoches.append(eps)
 
-        if "7" in want or "17" in want or "19" in want:
+        if "7" in want or "17" in want or "19" in want or "21" in want:
             phases.append(("7", season))
         if "8" in want:
             phases.append(("8", lambda: cs.sift_season_path(
@@ -164,8 +183,8 @@ def main() -> None:
                 cs.season_tools_path(reset, read, cfg, [
                     untracked, dict(untracked, attention=72)], 0.0),
                 cs.exif_check(tmp))))
-        if "17" in want or "19" in want:
-            # phases 17 and 19 need phase 7's outputs: the full-size
+        if "17" in want or "19" in want or "21" in want:
+            # phases 17, 19 and 21 need phase 7's outputs: the full-size
             # gates of phase 7 are not checked here
             cs.check_epoch = lambda st, gates: None
             cs.SEASON_GATES = dict(cs.SEASON_GATES, points=0, dense_points=0,
@@ -237,6 +256,21 @@ def main() -> None:
                     [(loftr.net.coarse, c0, c1, cells, cells)],
                     n_tokens=cs.SEASON_KEYPOINTS)
             phases.append(("20", sharded))
+        if "21" in want:
+            def commands():
+                # the matcher benchmark builds LightGlue with its default
+                # bf16 trunk, whose matmuls the CPU runs ~100x slower
+                # than f32
+                lg_init = matchers.LightGlueMatcher.__init__
+
+                def lg_f32(self, opt=None, *a, **k):
+                    lg_init(self, dict({"activation_dtype": "float32"},
+                                       **(opt or {})), *a, **k)
+
+                matchers.LightGlueMatcher.__init__ = lg_f32
+                return cs.commands_path(dev, reset, read, scene, cfg,
+                                        season_out[-1], tmp, img0, img1)
+            phases.append(("21", commands))
         for name, run in phases:
             t0 = time.perf_counter()
             try:

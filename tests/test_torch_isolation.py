@@ -281,3 +281,41 @@ def test_training_entry_points_raise_without_cuda(no_cuda):
                  lambda: main(["superpoint", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+COMMAND_ARGS = {
+    "run_pipeline": ["config.yaml"],
+    "build_dem": ["cloud.ply"],
+    "update_dem": ["base.npz", "update.npz"],
+    "track_targets": ["--master", "m.jpg", "--images", "*.jpg",
+                      "--targets", "t.csv"],
+    "volume_variations": ["*.ply"],
+    "voxelization": ["*.ply"],
+    "extract_section": ["*.ply"],
+    "plot_sections": ["*.ply", "--stations", "1"],
+    "pcd_rototranslation": ["*.ply"],
+    "dynamic_visualization": ["*.ply"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMMAND_ARGS)
+                         + ["examples.single_epoch_stereo",
+                            "examples.multitemporal_4d",
+                            "examples.matching_benchmark"])
+def test_commands_raise_without_cuda(name, no_cuda, tmp_path):
+    """Every command (through `python -m icepy4d_tpu_torch`'s dispatch)
+    and walkthrough runs on the card unless given --device cpu: without
+    one it raises before reading its inputs, and writes nothing."""
+    import importlib
+
+    from icepy4d_tpu_torch.cli import COMMANDS, main
+
+    assert sorted(COMMANDS) == sorted(COMMAND_ARGS)
+    if name.startswith("examples."):
+        mod = importlib.import_module(f"icepy4d_tpu_torch.{name}")
+        run = lambda: mod.main(["--assets", str(tmp_path)])  # noqa: E731
+    else:
+        run = lambda: main([name, *COMMAND_ARGS[name]])  # noqa: E731
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run()
+    assert not any(tmp_path.iterdir())

@@ -468,6 +468,64 @@ class StereoSeason:
             px.append(uv)
         return P + SEASON_ORIGIN, px
 
+    def _calib_line(self) -> str:
+        """A camera's calibration file: w h, K row by row, no distortion."""
+        fx, cx, fy, cy = (float(v) for v in self.K[[0, 0, 1, 1],
+                                                  [0, 2, 1, 2]])
+        return (f"{self.w} {self.h} {fx!r} 0 {cx!r} 0 {fy!r} {cy!r} 0 0 1 "
+                "0 0 0 0\n")
+
+    def write_assets(self, root, centers, labels, epoch: int = 0,
+                     which=(0, 3, 4), frames=None) -> None:
+        """Write one epoch of the first two cameras as an asset folder in
+        the reference layout, the walkthroughs' input: `img/<cam>/` JPEGs
+        whose EXIF carries the epoch's time, `calib/<cam>.txt`, and
+        `targets/` with a `<image stem>.csv` a frame and
+        `target_world.csv` for the targets `which` (one on the wall,
+        two on the boulders: two depths), renamed to `labels`. World
+        coordinates are those of the similarity that puts the two
+        cameras at `centers` (the walkthroughs' surveyed centres), so the
+        targets, the centres and the frames agree. `frames` (the two
+        cameras' uint8 frames of the epoch) skips the rendering."""
+        import csv
+
+        root = Path(root)
+        C = self.centers[:2] + SEASON_ORIGIN
+        c = np.asarray(centers, np.float64)[:2]
+        u, v = C[1] - C[0], c[1] - c[0]
+        s = np.linalg.norm(v) / np.linalg.norm(u)
+        u, v = u / np.linalg.norm(u), v / np.linalg.norm(v)
+        ax = np.cross(u, v)
+        X = np.array([[0, -ax[2], ax[1]], [ax[2], 0, -ax[0]],
+                      [-ax[1], ax[0], 0]])
+        R = np.eye(3) + X + X @ X / (1.0 + u @ v)     # u -> v (Rodrigues)
+        P, px = self.targets()
+        which = list(which)[:len(labels)]
+        world = c[0] + s * (P[which] - C[0]) @ R.T
+        (root / "calib").mkdir(parents=True, exist_ok=True)
+        (root / "targets").mkdir(parents=True, exist_ok=True)
+        with open(root / "targets" / "target_world.csv", "w",
+                  newline="") as fh:
+            wr = csv.writer(fh)
+            wr.writerow(["label", "X", "Y", "Z"])
+            wr.writerows([[lab, *(repr(float(x)) for x in p)]
+                          for lab, p in zip(labels, world)])
+        for i in range(2):
+            cam = f"cam{i + 1}"
+            (root / "calib" / f"{cam}.txt").write_text(self._calib_line())
+            d = root / "img" / cam
+            d.mkdir(parents=True, exist_ok=True)
+            stem = f"IMG_{i + 1}{epoch:03d}"
+            exif_jpeg(d / f"{stem}.jpg", self.render(i, epoch) if frames
+                      is None else frames[i],
+                      f"2022:07:28 {10 + epoch:02d}:00:00")
+            with open(root / "targets" / f"{stem}.csv", "w",
+                      newline="") as fh:
+                wr = csv.writer(fh)
+                wr.writerow(["label", "x", "y"])
+                wr.writerows([[lab, repr(float(x)), repr(float(y))]
+                              for lab, (x, y) in zip(labels, px[i][which])])
+
     def write(self, root, n_epochs: int = 3, max_keypoints: int = 512,
               options: dict | None = None) -> dict:
         """Write the season (frames with mtimes one hour apart,
@@ -491,11 +549,7 @@ class StereoSeason:
                           for lab, p in zip(self.LABELS, P)])
         for i in range(len(self.centers)):
             cam = f"cam{i + 1}"
-            fx, cx, fy, cy = (float(v) for v in self.K[[0, 0, 1, 1],
-                                                      [0, 2, 1, 2]])
-            (root / "calib" / f"{cam}.txt").write_text(
-                f"{self.w} {self.h} {fx!r} 0 {cx!r} 0 {fy!r} {cy!r} 0 0 1 "
-                "0 0 0 0\n")
+            (root / "calib" / f"{cam}.txt").write_text(self._calib_line())
             d = root / "img" / cam
             d.mkdir(parents=True, exist_ok=True)
             for e in range(n_epochs):

@@ -168,6 +168,7 @@ class ImageMatcherBase:
         # the seeded tracking of the same frames (tracking.py)
         self._feat_cache: dict | None = None
         self._cache_armed = False
+        self.timer = AverageTimer(device=self.device)
         self._build_models(opt)
         self._load_extractor(opt)
         self._reset()
@@ -527,24 +528,35 @@ class ImageMatcherBase:
         No pre-padding: SuperPoint pads internally and masks its own pad
         band as border."""
         k = max_keypoints or self._max_keypoints
-        if img0.shape == img1.shape:
-            feats = self._extract(torch.stack([img0, img1]), k)
-            feats0 = {n: a[:1] for n, a in feats.items()}
-            feats1 = {n: a[1:] for n, a in feats.items()}
-        else:
-            feats0 = self._extract(img0[None], k)
-            feats1 = self._extract(img1[None], k)
-        self._store_feat_cache((1, int(img0.shape[0]), int(img0.shape[1]), k),
-                               feats0, feats1)
-        self._full_feats = (feats0, feats1)
-        self.timer.update("extraction")
+        with self.timer.span("match.extraction", "extraction"):
+            if img0.shape == img1.shape:
+                feats = self._extract(torch.stack([img0, img1]), k)
+                feats0 = {n: a[:1] for n, a in feats.items()}
+                feats1 = {n: a[1:] for n, a in feats.items()}
+            else:
+                feats0 = self._extract(img0[None], k)
+                feats1 = self._extract(img1[None], k)
+            self._store_feat_cache(
+                (1, int(img0.shape[0]), int(img0.shape[1]), k), feats0, feats1)
+            self._full_feats = (feats0, feats1)
+        self._begin_matching()
         size0 = (int(img0.shape[1]), int(img0.shape[0]))
         size1 = (int(img1.shape[1]), int(img1.shape[0]))
         idx = np.zeros(1, np.int64)
-        out = self._match_pair_batch(feats0, feats1, idx, idx,
-                                     np.ones(1, bool), size0, size1)
+        with self.timer.span("match.model", "model"):
+            out = self._match_pair_batch(feats0, feats1, idx, idx,
+                                         np.ones(1, bool), size0, size1)
         zero = np.zeros((1, 2), np.float32)
-        return self._assemble(feats0, feats1, out, idx, idx, zero, zero)
+        with self.timer.span("match.assemble", "assemble"):
+            return self._assemble(feats0, feats1, out, idx, idx, zero, zero)
+
+    def _begin_matching(self) -> None:
+        """Open the `matching` span where the call's own extraction ends
+        (PRESELECTION's coarse match runs inside `preselection` and
+        opens none); `match` closes it once the results are host
+        arrays."""
+        if self.timer.current == "match":
+            self.timer.begin("match.matching", "matching")
 
     def _empty_result(self):
         z2 = np.empty((0, 2), np.float32)
@@ -558,13 +570,14 @@ class ImageMatcherBase:
         """Tilers, tile-pair selection and the power-of-two pair batch
         (as the JAX package pads it): (tiler0, tiler1, idx0, idx1,
         pair_valid), or None when no pair is selected."""
-        tiler0 = Tiler(grid=grid, overlap=overlap, origin=origin)
-        tiler1 = Tiler(grid=grid, overlap=overlap, origin=origin)
-        tiler0.compute_limits_by_grid(np.empty(img0.shape[:2]))
-        tiler1.compute_limits_by_grid(np.empty(img1.shape[:2]))
-        pairs = self._select_tile_pairs(img0, img1, tiler0, tiler1,
-                                        tile_selection, min_matches_per_tile)
-        self.timer.update("preselection")
+        with self.timer.span("match.preselection", "preselection"):
+            tiler0 = Tiler(grid=grid, overlap=overlap, origin=origin)
+            tiler1 = Tiler(grid=grid, overlap=overlap, origin=origin)
+            tiler0.compute_limits_by_grid(np.empty(img0.shape[:2]))
+            tiler1.compute_limits_by_grid(np.empty(img1.shape[:2]))
+            pairs = self._select_tile_pairs(img0, img1, tiler0, tiler1,
+                                            tile_selection,
+                                            min_matches_per_tile)
         if not pairs:
             logger.warning("No tile pairs selected: no matches")
             return None
@@ -581,22 +594,27 @@ class ImageMatcherBase:
         prep = self._prepare_tile_pairs(img0, img1, tile_selection, grid,
                                         overlap, origin, min_matches_per_tile)
         if prep is None:
+            self._begin_matching()
             return self._empty_result()
         tiler0, tiler1, idx0, idx1, pair_valid = prep
         th, tw = tiler0.tile_size
-        feats0 = self._extract_tiled(img0, tiler0.tile_origins(), th, tw,
-                                     self._max_keypoints)
-        feats1 = self._extract_tiled(img1, tiler1.tile_origins(), th, tw,
-                                     self._max_keypoints)
-        self._store_feat_cache((tiler0.n_tiles, th, tw, self._max_keypoints),
-                               feats0, feats1)
-        self.timer.update("extraction")
-        out = self._match_pair_batch(feats0, feats1, idx0, idx1, pair_valid,
-                                     (tw, th), (tw, th))
-        res = self._assemble(feats0, feats1, out, idx0, idx1,
-                             tiler0.tile_origins().astype(np.float32),
-                             tiler1.tile_origins().astype(np.float32))
-        return self._dedup(*res)
+        with self.timer.span("match.extraction", "extraction"):
+            feats0 = self._extract_tiled(img0, tiler0.tile_origins(), th, tw,
+                                         self._max_keypoints)
+            feats1 = self._extract_tiled(img1, tiler1.tile_origins(), th, tw,
+                                         self._max_keypoints)
+            self._store_feat_cache(
+                (tiler0.n_tiles, th, tw, self._max_keypoints), feats0, feats1)
+        self._begin_matching()
+        with self.timer.span("match.model", "model"):
+            out = self._match_pair_batch(feats0, feats1, idx0, idx1,
+                                         pair_valid, (tw, th), (tw, th))
+        with self.timer.span("match.assemble", "assemble"):
+            res = self._assemble(feats0, feats1, out, idx0, idx1,
+                                 tiler0.tile_origins().astype(np.float32),
+                                 tiler1.tile_origins().astype(np.float32))
+        with self.timer.span("match.dedup", "dedup"):
+            return self._dedup(*res)
 
     # -- template method --------------------------------------------------------
 
@@ -609,8 +627,28 @@ class ImageMatcherBase:
         quality resize -> (full | tiled) matching -> rescale keypoints ->
         geometric verification -> inlier filtering. With `save_dir`,
         the matched keypoints are written there as text, and with
-        `do_viz_matches` too the match mosaic as matches.png."""
-        self.timer = AverageTimer(device=self.device)
+        `do_viz_matches` too the match mosaic as matches.png.
+
+        `self.timer` records the call's spans, each a profiler range and
+        a `timer.times` key: `match` (the call; no key); `match.upload`
+        / upload (both frames to the device and preprocessed);
+        `match.preselection` / preselection (tilers and tile-pair
+        selection, PRESELECTION's coarse match inside);
+        `match.extraction` / extraction (tiling, the extractor, NMS,
+        top-K, the feature cache); `match.matching` / matching (from the
+        end of extraction until the results are host arrays) with its
+        children `match.model` / model (`_match_pair_batch`),
+        `match.assemble` / assemble (`_assemble`) and `match.dedup` /
+        dedup (`_dedup`); `match.verification` / geometric_verification.
+        No stage synchronises the device: on a card the seconds come
+        from CUDA events when `timer.times` is read."""
+        with self.timer.call("match"):
+            self._match(image0, image1, quality, tile_selection, config)
+        self.timer.print("Matching")
+        return True
+
+    def _match(self, image0, image1, quality: Quality,
+               tile_selection: TileSelection, config: dict) -> None:
         self._reset()
         gv_method = config.get("geometric_verification",
                                GeometricVerification.PYDEGENSAC)
@@ -620,8 +658,9 @@ class ImageMatcherBase:
         self._match_input_refs = (image0, image1)
 
         with torch.inference_mode():
-            g0 = _preprocess(_to_device(image0, self.device), qname)
-            g1 = _preprocess(_to_device(image1, self.device), qname)
+            with self.timer.span("match.upload", "upload"):
+                g0 = _preprocess(_to_device(image0, self.device), qname)
+                g1 = _preprocess(_to_device(image1, self.device), qname)
             if tile_selection is TileSelection.NONE:
                 res = self._match_full(g0, g1)
             else:
@@ -644,18 +683,19 @@ class ImageMatcherBase:
         self._scores1 = np.asarray(s1, np.float32)
         self._mconf = np.asarray(conf, np.float32)
         logger.info("Found %d putative matches", len(self._mconf))
-        self.timer.update("matching")
+        self.timer.end("match.matching")
 
         if gv_method is not GeometricVerification.NONE:
-            F, mask = geometric_verification(
-                self._mkpts0, self._mkpts1, method=gv_method,
-                threshold=config.get("threshold", 1.0),
-                confidence=config.get("confidence", 0.9999),
-                scores=self._mconf, device=self.device)
-            self._F = F
-            self._inlier_mask = mask
-            self._filter_matches_by_mask(mask)
-            self.timer.update("geometric_verification")
+            with self.timer.span("match.verification",
+                                 "geometric_verification"):
+                F, mask = geometric_verification(
+                    self._mkpts0, self._mkpts1, method=gv_method,
+                    threshold=config.get("threshold", 1.0),
+                    confidence=config.get("confidence", 0.9999),
+                    scores=self._mconf, device=self.device)
+                self._F = F
+                self._inlier_mask = mask
+                self._filter_matches_by_mask(mask)
 
         save_dir = config.get("save_dir", None)
         if bool(config.get("do_viz_matches", False)) and save_dir is not None:
@@ -666,8 +706,6 @@ class ImageMatcherBase:
                              path=str(Path(save_dir) / "matches.png"))
         if save_dir is not None:
             self.save_mkpts_as_txt(save_dir)
-        self.timer.print("Matching")
-        return True
 
     def save_mkpts_as_txt(self, savedir, delimiter: str = ",",
                           header: str = "x,y") -> None:
@@ -908,13 +946,16 @@ class SIFTMatcher(NearestNeighborMatcher):
         self._inlier_mask = mask
         self._filter_matches_by_mask(mask)
 
-    def match(self, image0, image1, **config) -> bool:
+    def _match(self, image0, image1, quality: Quality,
+               tile_selection: TileSelection, config: dict) -> None:
+        """The base match, then (full frame, with verification) the
+        guided rematch, in the span `match.guided_rematch` /
+        guided_rematch."""
         F_prior = config.pop("F_prior", None)
         gv_method = config.get("geometric_verification",
                                GeometricVerification.PYDEGENSAC)
-        full = config.get("tile_selection",
-                          TileSelection.NONE) is TileSelection.NONE
-        guided = (self._guided_rounds > 0 and full
+        guided = (self._guided_rounds > 0
+                  and tile_selection is TileSelection.NONE
                   and gv_method is not GeometricVerification.NONE)
         self._full_feats = None
         if F_prior is not None and guided:
@@ -922,10 +963,13 @@ class SIFTMatcher(NearestNeighborMatcher):
             # only estimate: skip it
             config = dict(config,
                           geometric_verification=GeometricVerification.NONE)
-        out = super().match(image0, image1, **config)
+        super()._match(image0, image1, quality, tile_selection, config)
         guide = F_prior if F_prior is not None else self._F
-        if guided and guide is not None and self._full_feats is not None:
-            scale = QUALITY_SCALE[config.get("quality", Quality.HIGH)]
+        if not (guided and guide is not None
+                and self._full_feats is not None):
+            return
+        scale = QUALITY_SCALE[quality]
+        with self.timer.span("match.guided_rematch", "guided_rematch"):
             prev = None
             for _ in range(self._guided_rounds):
                 self._guided_rematch(float(config.get("threshold", 1.0)),
@@ -940,9 +984,6 @@ class SIFTMatcher(NearestNeighborMatcher):
                 prev = cur
                 if self._F is not None:
                     guide = self._F
-            self.timer.update("guided_rematch")
-            self.timer.print("Matching+guided")
-        return out
 
 
 def _dense_grid(net, tiles: torch.Tensor, pool: int) -> dict:
@@ -1054,6 +1095,8 @@ class LoFTRMatcher(ImageMatcherBase):
     tree), confidence_threshold (0.2), max_matches per pair (1024),
     temp_bug_fix (False: the published checkpoints), precision
     ("highest": no TF32). Without weights, random ones from opt "seed".
+    Its forward runs over the tiles' pixels inside the `extraction`
+    span; `matching` holds `assemble` and `dedup` only.
     """
 
     def _build_models(self, opt: dict) -> None:
@@ -1104,7 +1147,11 @@ class LoFTRMatcher(ImageMatcherBase):
                 host["descriptors1"][valid], conf, conf, conf)
 
     def _match_full(self, img0, img1, max_keypoints=None):
-        return self._out_to_host(self.matcher.match_pair(img0, img1))
+        with self.timer.span("match.extraction", "extraction"):
+            out = self.matcher.match_pair(img0, img1)
+        self._begin_matching()
+        with self.timer.span("match.assemble", "assemble"):
+            return self._out_to_host(out)
 
     def _pair_chunk(self, bucket: int, th: int, tw: int) -> int:
         """Tile pairs a forward takes at once: the L0 x L1 similarity and
@@ -1123,6 +1170,7 @@ class LoFTRMatcher(ImageMatcherBase):
         prep = self._prepare_tile_pairs(img0, img1, tile_selection, grid,
                                         overlap, origin, min_matches_per_tile)
         if prep is None:
+            self._begin_matching()
             return self._empty_result()
         tiler0, tiler1, idx0, idx1, pair_valid = prep
         th, tw = tiler0.tile_size
@@ -1130,15 +1178,19 @@ class LoFTRMatcher(ImageMatcherBase):
         org1 = tiler1.tile_origins()
         chunk = self._pair_chunk(len(idx0), th, tw)
         outs = []
-        for i in range(0, len(idx0), chunk):
-            outs.append(self.matcher.match_batch(
-                extract_tiles(img0, org0[idx0[i:i + chunk]], th, tw),
-                extract_tiles(img1, org1[idx1[i:i + chunk]], th, tw),
-                pair_valid[i:i + chunk]))
-        self.timer.update("extraction")
-        res = self._out_to_host(_cat(outs), org0.astype(np.float32)[idx0],
-                                org1.astype(np.float32)[idx1])
-        return self._dedup(*res)
+        with self.timer.span("match.extraction", "extraction"):
+            for i in range(0, len(idx0), chunk):
+                outs.append(self.matcher.match_batch(
+                    extract_tiles(img0, org0[idx0[i:i + chunk]], th, tw),
+                    extract_tiles(img1, org1[idx1[i:i + chunk]], th, tw),
+                    pair_valid[i:i + chunk]))
+        self._begin_matching()
+        with self.timer.span("match.assemble", "assemble"):
+            res = self._out_to_host(_cat(outs),
+                                    org0.astype(np.float32)[idx0],
+                                    org1.astype(np.float32)[idx1])
+        with self.timer.span("match.dedup", "dedup"):
+            return self._dedup(*res)
 
 
 # the name the reference gives the class

@@ -25,12 +25,49 @@ from icepy4d_tpu_torch.ops.nms import fused_nms_border, simple_nms  # noqa: F401
 from icepy4d_tpu_torch.ops.topk import safe_top_k
 
 
+def _tf32_hi_lo(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 t = hi + lo exactly, hi with TF32's 10 mantissa bits."""
+    hi = (t.view(torch.int32) & -(1 << 13)).view(torch.float32)
+    return hi, t - hi
+
+
+def split_tf32(x: torch.Tensor,
+               w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A one-channel f32 convolution as a four-channel one that TF32
+    runs to ~2^-20 of f32: input channels (hi, lo, hi, lo) of x (B, 1,
+    H, W) against (w_hi, w_hi, w_lo, w_lo) of w (O, 1, kh, kw) sum x * w
+    (the tensor cores form each product of TF32 values exactly; only
+    lo and w_lo round). cuDNN's fused engines take four channels on the
+    tensor cores, and run one in f32 on the CUDA cores 2.5x slower;
+    plain TF32 would put conv1a 2^-11 off where the unfused NCHW engine
+    ran f32. Both come back channels-last."""
+    ch = torch.arange(4, device=x.device)
+    hi, lo = _tf32_hi_lo(x[:, 0, :, :, None])
+    w_hi, w_lo = _tf32_hi_lo(w[:, 0, :, :, None])
+    # one broadcast pass writes the interleaved channels (a stack along
+    # the last axis copies them several times slower)
+    return (torch.where(ch % 2 == 1, lo, hi).permute(0, 3, 1, 2),
+            torch.where(ch >= 2, w_lo, w_hi).permute(0, 3, 1, 2))
+
+
 class SuperPointNet(nn.Module):
     """The CNN: gray (B, 1, H, W) -> (heat (B, H, W) f32,
     dense descriptors (B, D, H/8, W/8) f32, L2-normalised).
 
     H and W must be multiples of 8.
+
+    On a CUDA input with autograd off, each 3x3 convolution that a ReLU
+    follows runs as one cuDNN convolution-bias-ReLU graph, whose
+    epilogue adds the bias and clamps before its one store, over
+    channels-last (NHWC) activations: cuDNN's fused engines take that
+    layout, so no pass transposes, adds the bias or clamps on its own.
+    f32 conv1a runs as `split_tf32` says where TF32 is on.
+    `fused_convs` counts those calls, 10 a forward. A CPU input, or a
+    forward that records a graph for a backward (the fused op has
+    none), runs the plain conv, bias and ReLU in NCHW.
     """
+
+    fused_convs = 0
 
     def __init__(self, channels=(64, 64, 128, 128), descriptor_dim: int = 256):
         super().__init__()
@@ -45,21 +82,38 @@ class SuperPointNet(nn.Module):
         self.convDa = conv(c4, 256)
         self.convDb = nn.Conv2d(256, descriptor_dim, 1)
 
+    @staticmethod
+    def _conv_relu(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(conv(x), inplace=True)
+
+    @staticmethod
+    def _conv_relu_fused(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        SuperPointNet.fused_convs += 1
+        w = conv.weight
+        if (conv.in_channels == 1 and x.dtype == torch.float32
+                and torch.backends.cudnn.allow_tf32):
+            x, w = split_tf32(x, w)
+        return torch.ops.aten.cudnn_convolution_relu(
+            x, w, conv.bias, conv.stride, conv.padding, conv.dilation,
+            conv.groups)
+
     def forward(self, x: torch.Tensor,
                 raw: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """`raw=True` is the training surface: the 65-way cell logits
         (B, 65, H/8, W/8) f32 (class axis 1, where the JAX package's
         NHWC layout has it last) in place of the heat map."""
         x = x.to(self.conv1a.weight.dtype)
+        conv_relu = self._conv_relu
+        if x.is_cuda and not torch.is_grad_enabled():
+            conv_relu = self._conv_relu_fused
+            x = x.to(memory_format=torch.channels_last)
         for a, b in ((self.conv1a, self.conv1b), (self.conv2a, self.conv2b),
                      (self.conv3a, self.conv3b)):
-            x = F.relu(b(F.relu(a(x), inplace=True)), inplace=True)
-            x = F.max_pool2d(x, 2, 2)
-        x = F.relu(self.conv4a(x), inplace=True)
-        x = F.relu(self.conv4b(x), inplace=True)
+            x = F.max_pool2d(conv_relu(b, conv_relu(a, x)), 2, 2)
+        x = conv_relu(self.conv4b, conv_relu(self.conv4a, x))
 
-        logits = self.convPb(F.relu(self.convPa(x), inplace=True)).float()
-        desc = self.convDb(F.relu(self.convDa(x), inplace=True)).float()
+        logits = self.convPb(conv_relu(self.convPa, x)).float()
+        desc = self.convDb(conv_relu(self.convDa, x)).float()
         desc = desc / desc.norm(dim=1, keepdim=True).clamp_min(1e-12)
         if raw:
             return logits, desc
@@ -143,8 +197,11 @@ class SuperPoint:
         self.remove_borders = int(remove_borders)
         self.descriptor_dim = int(descriptor_dim)
         self.device = resolve_device(device)
+        # channels-last weights on the card, as the fused trunk takes them
+        layout = (torch.channels_last if self.device.type == "cuda"
+                  else torch.contiguous_format)
         self.net = SuperPointNet(descriptor_dim=descriptor_dim).to(
-            device=self.device, dtype=dtype).eval()
+            device=self.device, dtype=dtype, memory_format=layout).eval()
 
     def load_state_dict(self, state_dict: dict) -> "SuperPoint":
         self.net.load_state_dict(state_dict)

@@ -1095,8 +1095,18 @@ class LoFTRMatcher(ImageMatcherBase):
     tree), confidence_threshold (0.2), max_matches per pair (1024),
     temp_bug_fix (False: the published checkpoints), precision
     ("highest": no TF32). Without weights, random ones from opt "seed".
-    Its forward runs over the tiles' pixels inside the `extraction`
-    span; `matching` holds `assemble` and `dedup` only.
+
+    The forward is the matcher model: it runs inside `match.matching`
+    as its child `match.model` (key `model`), beside `match.assemble`
+    and (tiled) `match.dedup`; no `extraction` span is opened. The
+    model records its four stages under `match.model` on the matcher's
+    timer (`match.loftr.backbone`, `.coarse`, `.coarse_match`, `.fine`;
+    a key sums over a call's forwards). `counters` holds the last
+    call's counts: `tile_pairs` (selected), `bucket` (the power-of-two
+    batch they are padded to), `forwards` and `pairs_per_forward` (the
+    chunks), `coarse_tokens` (a tile's, or the frame's), `matches_kept`
+    (coarse matches kept over the real pairs) and `pairs_at_cap`
+    (pairs whose kept matches reached `max_matches`).
     """
 
     def _build_models(self, opt: dict) -> None:
@@ -1106,6 +1116,8 @@ class LoFTRMatcher(ImageMatcherBase):
             temp_bug_fix=bool(opt.get("temp_bug_fix", False)),
             precision=str(opt.get("precision", "default")),
             device=self.device)
+        self.matcher.timer = self.timer
+        self.matcher.span_prefix = "match.loftr"
         if "matcher_params" in opt:
             state = loftr_params(opt["matcher_params"])
         elif "loftr_weights" in opt:
@@ -1119,6 +1131,10 @@ class LoFTRMatcher(ImageMatcherBase):
     def _load_extractor(self, opt: dict) -> None:
         pass
 
+    def _reset(self) -> None:
+        super()._reset()
+        self.counters: dict[str, int] = {}
+
     @property
     def descriptor_dim(self) -> int:
         return 128
@@ -1129,9 +1145,11 @@ class LoFTRMatcher(ImageMatcherBase):
     def _extract_tiled(self, *args, **kwargs):
         raise NotImplementedError(_DETECTOR_FREE)
 
-    @staticmethod
-    def _out_to_host(out: dict, origin0=None, origin1=None):
+    def _out_to_host(self, out: dict, origin0=None, origin1=None):
         valid = out["valid"].cpu().numpy()
+        kept = valid.sum(1)
+        self.counters.update(matches_kept=int(kept.sum()),
+                             pairs_at_cap=int((kept >= valid.shape[1]).sum()))
         host = {k: out[k].cpu().numpy() for k in (
             "keypoints0", "keypoints1", "descriptors0", "descriptors1",
             "confidence")}
@@ -1147,20 +1165,30 @@ class LoFTRMatcher(ImageMatcherBase):
                 host["descriptors1"][valid], conf, conf, conf)
 
     def _match_full(self, img0, img1, max_keypoints=None):
-        with self.timer.span("match.extraction", "extraction"):
-            out = self.matcher.match_pair(img0, img1)
         self._begin_matching()
+        h, w = (int(v) for v in img0.shape[:2])
+        self.counters.update(tile_pairs=1, bucket=1, forwards=1,
+                             pairs_per_forward=1,
+                             coarse_tokens=(-(-h // 8)) * (-(-w // 8)))
+        with self.timer.span("match.model", "model"):
+            out = self.matcher.match_pair(img0, img1)
         with self.timer.span("match.assemble", "assemble"):
             return self._out_to_host(out)
 
     def _pair_chunk(self, bucket: int, th: int, tw: int) -> int:
         """Tile pairs a forward takes at once: the L0 x L1 similarity and
         its two softmaxes (f32) and the pair mask, plus the fine windows,
-        against half the device's free memory (2 GiB on the CPU)."""
+        against half the device memory that is free or that the caching
+        allocator holds unused (2 GiB on the CPU). `mem_get_info` alone
+        would shrink the chunk once an earlier call has left its blocks
+        in the allocator's cache."""
         l_c = (th // 8) * (tw // 8)
         per_pair = l_c * l_c * (3 * 4 + 1) + th * tw * 600
         if self.device.type == "cuda":
-            budget = torch.cuda.mem_get_info(self.device)[0] // 2
+            free = torch.cuda.mem_get_info(self.device)[0] \
+                + torch.cuda.memory_reserved(self.device) \
+                - torch.cuda.memory_allocated(self.device)
+            budget = free // 2
         else:
             budget = 2 << 30
         return self._auto_chunk(bucket, per_pair, budget=budget)
@@ -1169,22 +1197,25 @@ class LoFTRMatcher(ImageMatcherBase):
                      overlap: int, origin, min_matches_per_tile: int):
         prep = self._prepare_tile_pairs(img0, img1, tile_selection, grid,
                                         overlap, origin, min_matches_per_tile)
+        self._begin_matching()
         if prep is None:
-            self._begin_matching()
             return self._empty_result()
         tiler0, tiler1, idx0, idx1, pair_valid = prep
         th, tw = tiler0.tile_size
         org0 = tiler0.tile_origins()
         org1 = tiler1.tile_origins()
         chunk = self._pair_chunk(len(idx0), th, tw)
+        self.counters.update(
+            tile_pairs=int(pair_valid.sum()), bucket=len(idx0),
+            forwards=len(idx0) // chunk, pairs_per_forward=chunk,
+            coarse_tokens=(-(-th // 8)) * (-(-tw // 8)))
         outs = []
-        with self.timer.span("match.extraction", "extraction"):
+        with self.timer.span("match.model", "model"):
             for i in range(0, len(idx0), chunk):
                 outs.append(self.matcher.match_batch(
                     extract_tiles(img0, org0[idx0[i:i + chunk]], th, tw),
                     extract_tiles(img1, org1[idx1[i:i + chunk]], th, tw),
                     pair_valid[i:i + chunk]))
-        self._begin_matching()
         with self.timer.span("match.assemble", "assemble"):
             res = self._out_to_host(_cat(outs),
                                     org0.astype(np.float32)[idx0],

@@ -17,6 +17,16 @@ matrix, plain PyTorch as in the JAX package (no kernel). The whole
 forward is batched over tile pairs. Module names follow the JAX tree;
 `models.convert.loftr_params` loads a JAX tree and `load_torch_loftr`
 a kornia-layout checkpoint.
+
+Given a `utils/timer.py::AverageTimer` as `LoFTR.timer`, a forward
+records four spans under the name prefix `LoFTR.span_prefix` (the
+caller's: the matcher hands its own timer and `match.loftr`):
+`<prefix>.backbone` (key `backbone`), `<prefix>.coarse` (`coarse`:
+position encoding and the coarse transformer), `<prefix>.coarse_match`
+(`coarse_match`: similarity, dual softmax, mutual NN, threshold, border,
+top-k) and `<prefix>.fine` (`fine`: windows, merge, fine transformer,
+expectation). None of them synchronises the device; without a timer
+none is opened.
 """
 
 from __future__ import annotations
@@ -332,6 +342,8 @@ class LoFTR:
         self.max_matches = int(max_matches)
         self.precision = precision
         self.device = resolve_device(device)
+        self.timer = None       # an AverageTimer: the forward's spans
+        self.span_prefix = "loftr"
         self.net = LoFTRNet(d_model_c, d_model_f, coarse_pairs, fine_pairs,
                             initial_dim, tuple(block_dims)).to(
             self.device).eval()
@@ -354,6 +366,13 @@ class LoFTR:
         return full_f32_matmul() if self.precision == "highest" \
             else contextlib.nullcontext()
 
+    def _span(self, stage: str):
+        """Span `<span_prefix>.<stage>`, key `stage`, on the timer (none
+        without one)."""
+        if self.timer is None:
+            return contextlib.nullcontext()
+        return self.timer.span(f"{self.span_prefix}.{stage}", stage)
+
     def coarse_features(self, imgs0: torch.Tensor, imgs1: torch.Tensor,
                         mask_c0: torch.Tensor, mask_c1: torch.Tensor):
         """Backbone, position encoding and the coarse transformer of a
@@ -361,12 +380,13 @@ class LoFTR:
         fine maps ff0, ff1 (B, H/2, W/2, 128), coarse grids)."""
         net = self.net
         b = imgs0.shape[0]
-        if imgs0.shape == imgs1.shape:
-            fc, ff = net.backbone(torch.cat([imgs0, imgs1])[:, None])
-            fc0, fc1, ff0, ff1 = fc[:b], fc[b:], ff[:b], ff[b:]
-        else:
-            fc0, ff0 = net.backbone(imgs0[:, None])
-            fc1, ff1 = net.backbone(imgs1[:, None])
+        with self._span("backbone"):
+            if imgs0.shape == imgs1.shape:
+                fc, ff = net.backbone(torch.cat([imgs0, imgs1])[:, None])
+                fc0, fc1, ff0, ff1 = fc[:b], fc[b:], ff[:b], ff[b:]
+            else:
+                fc0, ff0 = net.backbone(imgs0[:, None])
+                fc1, ff1 = net.backbone(imgs1[:, None])
         hw0_c = tuple(fc0.shape[2:])
         hw1_c = tuple(fc1.shape[2:])
 
@@ -375,8 +395,10 @@ class LoFTR:
                 self.d_model_c, *hw, self.temp_bug_fix)).to(fc.device)
             return (fc.permute(0, 2, 3, 1) + pe).reshape(b, -1, self.d_model_c)
 
-        c0, c1 = lft_apply(net.coarse, tokens(fc0, hw0_c),
-                           tokens(fc1, hw1_c), mask_c0, mask_c1, self.nhead)
+        with self._span("coarse"):
+            c0, c1 = lft_apply(net.coarse, tokens(fc0, hw0_c),
+                               tokens(fc1, hw1_c), mask_c0, mask_c1,
+                               self.nhead)
         return (c0, c1, ff0.permute(0, 2, 3, 1), ff1.permute(0, 2, 3, 1),
                 hw0_c, hw1_c)
 
@@ -394,12 +416,20 @@ class LoFTR:
     def _forward(self, imgs0, imgs1, mask_c0, mask_c1) -> dict:
         c0, c1, ff0, ff1, hw0_c, hw1_c = self.coarse_features(
             imgs0, imgs1, mask_c0, mask_c1)
-        conf = self.coarse_confidence(c0, c1, mask_c0, mask_c1)
-        l0 = hw0_c[0] * hw0_c[1]
-        i, j, mconf, valid = coarse_match(
-            conf, mask_c0, mask_c1, hw0_c, hw1_c, self.thr, self.border_rm,
-            min(self.max_matches, l0))
-        del conf
+        with self._span("coarse_match"):
+            conf = self.coarse_confidence(c0, c1, mask_c0, mask_c1)
+            l0 = hw0_c[0] * hw0_c[1]
+            i, j, mconf, valid = coarse_match(
+                conf, mask_c0, mask_c1, hw0_c, hw1_c, self.thr,
+                self.border_rm, min(self.max_matches, l0))
+            del conf
+        with self._span("fine"):
+            return self._fine(c0, c1, ff0, ff1, hw0_c, hw1_c, i, j, mconf,
+                              valid)
+
+    def _fine(self, c0, c1, ff0, ff1, hw0_c, hw1_c, i, j, mconf,
+              valid) -> dict:
+        """The fine stage on the kept coarse matches (i, j)."""
 
         def cells(idx, wc):
             return torch.stack([(idx % wc).float() * 8.0,

@@ -29,7 +29,13 @@ anything in it fails:
    packed capacities, B = the tile-pair batch, (Nq, Nk) in
    {64, ..., 2048}^2 with padding masks and head views, where a shape
    over 2e-3 passes only if the kernel is as close to the plain f32
-   version as the plain bf16 one is (see check_attention);
+   version as the plain bf16 one is (see check_attention); the
+   dual-softmax coarse match at LoFTR's tile-pair batch (2, 30000,
+   30000, d 256, every cell valid) and at ragged sizes with masks and
+   wholly masked rows and columns: bj and bi equal wherever the best two
+   plain confidences are no near tie (1e-4 of the best apart) and on
+   every wholly masked row, bv within 1e-4 relative
+   (see check_dual_softmax);
 4. matcher path: LightGlueMatcher.match on a synthetic 6012x4008 pair
    with a known 8-px shift, 2x2 EXHAUSTIVE tiles, 4096 keypoints per
    tile, bundled weights, PYDEGENSAC; run cold, then warm with every
@@ -153,11 +159,18 @@ anything in it fails:
    refined share printed; LoFTRMatcher at the published architecture
    with random weights (confidence threshold 1e-8) on the finest n x n
    GRID whose tiles stay under MAX_COARSE_TOKENS (tile sizes from
-   compute_tile_limits); neither launches a kernel; LoFTR's coarse
+   compute_tile_limits); neither launches the NMS, attention or sweep
+   kernel, and the warm LoFTR match launches the dual-softmax kernel
+   once a forward (LoFTRMatcher.counters["forwards"]); LoFTR's coarse
    confidences and match sets on the card against the same weights on
    the card's CPU on a LOFTR_CROP crop (f32, no TF32): confidences
    within 5e-4 of the largest, match sets Jaccard >= 0.99, common fine
-   keypoints within 3e-4 px (10x the first H100 run's differences);
+   keypoints within 3e-4 px (10x the first H100 run's differences), the
+   card's forward one dual-softmax launch, and the kernel's best matches
+   on the card's coarse features against the same confidences in f64:
+   the phase-3 rule, bv within the larger of 1e-4 and the plain f32
+   version's own error (random weights give scores of ~85, which f32
+   rounds at ~1e-4 of bv; see hold_best_matches);
 16. season tools: Pipeline.warmup() then run() on phase 7's frames, two
    epochs with tracking (warmup's launches printed; the epochs'
    launches exactly phase 4's, plus one seeded forward on epoch 1),
@@ -304,7 +317,8 @@ before the timing of phase 9; their results are in the same JSON line.
 The kernels line's launches are those of the matcher paths of phases
 4, 13 and 14, of phase 20 ((b)'s untiled match and dense forward over
 the kernel, (d)'s pipeline), of phase 18, of phase 19 (a)'s warm run
-and of phase 21 (b)'s season (the sweep's of phase 6 and phase 21 (b)).
+and of phase 21 (b)'s season (the sweep's of phase 6 and phase 21 (b);
+the dual softmax's of phase 15's warm LoFTR match and its crop).
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -386,6 +400,9 @@ TIE = 1e-5                     # runner-up minus best cost of a near tie
 # argmin update 20
 SWEEP_OPS = 3 + 2 + 12 + 3 + 4 + 7 + 1 + 20
 MEM_BPS = 3.35e12              # H100 SXM device memory rate, bytes/s
+DSMAX_T = 0.1                  # LoFTR's dual-softmax temperature
+DSMAX_SHAPE = (2, 30000, 30000)  # LoFTR's tile-pair batch: 2 tile pairs of
+                               # 1600 x 1200 px, 30000 coarse tokens each
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 F32_FLOPS = 67e12              # H100 SXM f32 rate outside the tensor cores
 
@@ -618,6 +635,99 @@ def check_attention(attention, dev, b, h, nq, nk, mode="rand",
     if not ok:
         raise AssertionError(f"attention kernel vs plain bf16: {rel}{note}")
     return err
+
+
+def dual_softmax_inputs(b, l0, l1, dev, seed=0, p_keep=1.0, dead=False):
+    """c0 (b, l0, 256) and c1 (b, l1, 256) f32 unit normal, a third of
+    c1's rows noisy copies of c0's (clear best matches, as trained
+    features give), and cell masks keeping `p_keep`; with `dead`, tile
+    pair 1 has every column masked and tile pair 2 every row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c0 = torch.randn(b, l0, 256, generator=g, device=dev)
+    c1 = torch.randn(b, l1, 256, generator=g, device=dev)
+    n = min(l0, l1) // 3
+    src = torch.randperm(l0, generator=g, device=dev)[:n]
+    dst = torch.randperm(l1, generator=g, device=dev)[:n]
+    c1[:, dst] = c0[:, src] + 0.3 * torch.randn(b, n, 256, generator=g,
+                                                device=dev)
+    m0 = torch.rand(b, l0, generator=g, device=dev) < p_keep
+    m1 = torch.rand(b, l1, generator=g, device=dev) < p_keep
+    if dead and b > 1:
+        m1[1] = False
+    if dead and b > 2:
+        m0[2] = False
+    return c0, c1, m0, m1
+
+
+def no_near_tie(conf: torch.Tensor, dim: int, rtol: float = 1e-4):
+    """Rows (dim 2) or columns (dim 1) of confidences whose best is
+    normal and exceeds the runner-up by more than rtol of it."""
+    if conf.shape[dim] < 2:
+        return conf.amax(dim) > 1e-30
+    top = conf.topk(2, dim=dim).values
+    a, b = top.select(dim, 0), top.select(dim, 1)
+    return (a > 1e-30) & (a - b > rtol * a)
+
+
+def hold_best_matches(got: tuple, conf: torch.Tensor, m0, m1,
+                      label: str, conf64: torch.Tensor | None = None) -> dict:
+    """The kernel's (bj, bv, bi) against the plain confidences conf:
+    bj and bi equal off near ties and on wholly masked rows, bv within
+    1e-4 relative (each side rounds scores of ~10 at ~1e-6, and bv is
+    the exponential of a sum of three of them). Where scores are far
+    larger (LoFTR's random-weight features: ~85), the plain f32 version
+    itself strays ~1e-4 from the exact bv; given the same confidences
+    in f64 (`conf64`), the kernel is held against those instead, bv
+    within the larger of 1e-4 and the plain f32 version's own largest
+    relative error. Returns the gaps."""
+    from icepy4d_tpu_torch.ops import dual_softmax as ds
+
+    bj, bv, bi = got
+    rtol, plain_rel = 1e-4, None
+    if conf64 is not None:
+        p32 = conf.amax(2).double()
+        conf = conf64
+    pj, pv, pi = ds.best_of(conf)
+    normal = pv > 1e-30
+    if conf64 is not None:
+        plain_rel = ((p32 - pv).abs()[normal] / pv[normal]).max().item() \
+            if normal.any() else 0.0
+        rtol = max(rtol, plain_rel)
+    rows, cols = no_near_tie(conf, 2), no_near_tie(conf, 1)
+    dead = ~m0 | ~m1.any(1, keepdim=True)
+    gap = (bv.to(pv.dtype) - pv).abs()
+    rel = gap[normal] / pv[normal]
+    out = {"bj_off": int((bj != pj)[rows].sum()),
+           "bi_off": int((bi != pi)[cols].sum()),
+           "dead_rows_off": int((bj != pj)[dead].sum()),
+           "rows_clear": rows.float().mean().item(),
+           "cols_clear": cols.float().mean().item(),
+           "bv_max_abs": gap.max().item(),
+           "bv_max_rel": rel.max().item() if normal.any() else 0.0,
+           "plain_bv_max_rel": plain_rel,
+           "bv_out": int((rel > rtol).sum() + (gap[~normal] > 1e-30).sum())}
+    log(f"  dual softmax {label}: {out}")
+    if out["bj_off"] or out["bi_off"] or out["dead_rows_off"] \
+            or out["bv_out"]:
+        raise AssertionError(f"dual softmax {label}: {out}")
+    return out
+
+
+def check_dual_softmax(ds, dev, b, l0, l1, p_keep=1.0, dead=False,
+                       seed=0) -> dict:
+    """The dual-softmax kernel (one launch) against its plain version
+    on `dual_softmax_inputs` (see hold_best_matches)."""
+    c0, c1, m0, m1 = dual_softmax_inputs(b, l0, l1, dev, seed, p_keep, dead)
+    before = ds.KERNEL.launches
+    got = ds.best_matches(c0, c1, m0, m1, DSMAX_T)
+    torch.cuda.synchronize()
+    if ds.KERNEL.launches != before + 1:
+        raise AssertionError("the dual softmax did not launch its kernel")
+    conf = ds.confidence_plain(c0, c1, m0, m1, DSMAX_T)
+    out = hold_best_matches(got, conf, m0, m1, f"{(b, l0, l1)}")
+    del conf
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_sweep(dense, I0, I1, lo, hi, n, window, label) -> float:
@@ -921,7 +1031,7 @@ def batched_expected(pipe, b: int, n_epochs: int) -> dict:
     chunk = pipe.matcher._extract_chunk(b, H_IMG, W_IMG)
     return {"nms": groups * 2 * (b // chunk),
             "attention": groups * 4 * pipe.matcher.matcher.n_layers,
-            "sweep": 0}
+            "sweep": 0, "dual_softmax": 0}
 
 
 def run_batched_timed(pipe, mesh, reset_counts, read_counts):
@@ -1623,7 +1733,7 @@ def superglue_path(dev, reset_counts, read_counts, img0, img1, call: dict,
         f"chunks {len(captured)}, launches {counts}")
     n_layers = len(matcher.matcher.gnn)
     want = {"nms": n_chunks_nms, "attention": 2 * n_layers * len(captured),
-            "sweep": 0}
+            "sweep": 0, "dual_softmax": 0}
     if counts != want:
         raise AssertionError(f"superglue launches {counts} != {want}")
     # the NMS kernel at r = 3 on the run's own heat map, bit for bit
@@ -1710,10 +1820,13 @@ def superglue_path(dev, reset_counts, read_counts, img0, img1, call: dict,
 # -- phase 14: DISK and ALIKED -------------------------------------------------
 
 def timed_match(reset_counts, read_counts, label: str, matcher, img0, img1,
-                want_attention_per_chunk: int = 0, **call) -> dict:
+                want_attention_per_chunk: int = 0,
+                dual_softmax_a_forward: bool = False, **call) -> dict:
     """A matcher's match, cold then warm, with every launch count set to
-    0 before each; the warm run's launches must be no NMS or sweep and
-    `want_attention_per_chunk` attention launches a pair chunk."""
+    0 before each; the warm run's launches must be no NMS or sweep,
+    `want_attention_per_chunk` attention launches a pair chunk, and, with
+    `dual_softmax_a_forward`, one dual-softmax launch a LoFTR forward
+    (`matcher.counters["forwards"]`), else none."""
     chunks = []
     run_matcher = matcher._run_matcher
 
@@ -1746,9 +1859,10 @@ def timed_match(reset_counts, read_counts, label: str, matcher, img0, img1,
         f"s, putative {out['putative']}, inliers {out['inliers']}, "
         f"precision {out['precision']:.4f}, pair chunks {len(chunks)}, "
         f"launches {counts}, stages {out['stages_s']}")
+    forwards = matcher.counters["forwards"] if dual_softmax_a_forward else 0
     want = {"nms": 0, "attention": want_attention_per_chunk * len(chunks),
-            "sweep": 0}
-    if counts != want:
+            "sweep": 0, "dual_softmax": forwards}
+    if counts != want or (dual_softmax_a_forward and not forwards):
         raise AssertionError(f"{label}: launches {counts} != {want}")
     return out
 
@@ -1799,6 +1913,7 @@ def loftr_semidense_path(dev, reset_counts, read_counts, img0, img1,
                                             SemiDenseMatcher, TileSelection,
                                             Tiler)
     from icepy4d_tpu_torch.models.loftr import LoFTR
+    from icepy4d_tpu_torch.ops import dual_softmax
 
     run = partial(timed_match, reset_counts, read_counts,
                   quality=Quality.HIGH, threshold=1.0,
@@ -1834,6 +1949,7 @@ def loftr_semidense_path(dev, reset_counts, read_counts, img0, img1,
     res["loftr"] = run(f"LoFTR, {n}x{n} GRID tiles of {tw}x{th} "
                        f"({(th // 8) * (tw // 8)} coarse tokens), random "
                        f"weights", m, img0, img1,
+                       dual_softmax_a_forward=True,
                        tile_selection=TileSelection.GRID, grid=[n, n],
                        overlap=200)
     res["loftr"].update(grid=n, tile=(th, tw))
@@ -1841,12 +1957,15 @@ def loftr_semidense_path(dev, reset_counts, read_counts, img0, img1,
         raise AssertionError("LoFTR found no match")
 
     # the same weights on the card and on the card's CPU, f32 without
-    # TF32, on a crop: coarse confidences and match sets
+    # TF32, on a crop: coarse confidences and match sets; on the card
+    # the kernel's best matches of its coarse features against the dense
+    # confidences', and one launch for its forward
     state = {k: v.cpu() for k, v in m.matcher.net.state_dict().items()}
     h, w = LOFTR_CROP
     a = img0[:h, :w].astype(np.float32) / 255.0
     b = img1[:h, :w].astype(np.float32) / 255.0
     outs, confs = {}, {}
+    reset_counts()
     for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
         model = LoFTR(thr=1e-8, max_matches=1024, precision="highest",
                       device=device).load_state_dict(state)
@@ -1856,10 +1975,18 @@ def loftr_semidense_path(dev, reset_counts, read_counts, img0, img1,
                            device=device)
         with torch.inference_mode(), model._precision():
             c0, c1, *_ = model.coarse_features(ta, tb, cells, cells)
-            confs[name] = model.coarse_confidence(c0, c1, cells,
-                                                  cells)[0].cpu()
+            conf = model.coarse_confidence(c0, c1, cells, cells)
+            if name == "card":
+                best = hold_best_matches(dual_softmax.best_matches(
+                    c0, c1, cells, cells, model.dsmax_temperature), conf,
+                    cells, cells, f"LoFTR {w}x{h} crop",
+                    model.coarse_confidence(c0.double(), c1.double(),
+                                            cells, cells))
+            confs[name] = conf[0].cpu()
+            del conf
         outs[name] = {k: v[0].cpu() for k, v in
                       model.match_pair(a, b).items()}
+    crop_launches = read_counts()["dual_softmax"]
     conf_err = (confs["card"] - confs["cpu"]).abs().max().item()
     conf_rel = conf_err / confs["cpu"].max().item()
 
@@ -1876,17 +2003,20 @@ def loftr_semidense_path(dev, reset_counts, read_counts, img0, img1,
     res["loftr_card_vs_cpu"] = {"crop": LOFTR_CROP, "conf_max_abs": conf_err,
                                 "conf_rel": conf_rel, "matches_card": len(tc),
                                 "matches_cpu": len(tp), "jaccard": jaccard,
-                                "keypoints1_max_px": kp_err}
+                                "keypoints1_max_px": kp_err,
+                                "best_matches": best,
+                                "launches": crop_launches}
     log(f"  LoFTR card vs the card's CPU on a {w}x{h} crop: coarse "
         f"confidences max abs diff {conf_err:.3e} ({conf_rel:.3e} of the "
         f"largest), matches {len(tc)} / {len(tp)}, Jaccard {jaccard:.4f}, "
-        f"fine keypoints max {kp_err:.3e} px")
+        f"fine keypoints max {kp_err:.3e} px, dual-softmax launches "
+        f"{crop_launches}")
     # tolerances, 10x what the first H100 run read (confidences 5.0e-5
     # of the largest, fine keypoints 3.1e-5 px apart, the same 106
     # matches): the confidences within 5e-4 of the largest, the common
     # fine keypoints within 3e-4 px, the match sets Jaccard >= 0.99
     if not (conf_rel <= 5e-4 and jaccard >= 0.99 and kp_err <= 3e-4
-            and len(tc) > 0):
+            and len(tc) > 0 and crop_launches == 2):
         raise AssertionError(f"LoFTR card vs CPU: {res['loftr_card_vs_cpu']}")
     del m, outs, confs
     torch.cuda.empty_cache()
@@ -2682,10 +2812,10 @@ def training_path(dev, reset_counts, read_counts, image_dir, results_dir,
         f"{launches['evaluate']}")
     n_chunks = -(-z["lg_batches"] * z["lg_batch"] // 64)
     if launches["dataset"] != {"nms": 2 * n_chunks, "attention": 0,
-                               "sweep": 0}:
+                               "sweep": 0, "dual_softmax": 0}:
         raise AssertionError(f"dataset launches {launches['dataset']}")
-    if launches["evaluate"] != {"nms": 0, "sweep": 0, "attention":
-                                2 * 36 * z["lg_eval"]}:
+    if launches["evaluate"] != {"nms": 0, "sweep": 0, "dual_softmax": 0,
+                                "attention": 2 * 36 * z["lg_eval"]}:
         raise AssertionError(f"evaluation launches {launches['evaluate']}")
     if after["recall"] < before["recall"] - TRAIN_RECALL_DROP:
         raise AssertionError(f"LightGlue recall {before['recall']} -> "
@@ -2726,7 +2856,8 @@ def training_path(dev, reset_counts, read_counts, image_dir, results_dir,
         f"{times['finetune_train']:.1f} s, chunk means "
         f"{[round(h['chunk_mean'], 4) for h in ft_hist]}")
     if len(pairs) != 3 or launches["finetune"] != {
-            "nms": 2 * len(pairs), "attention": 0, "sweep": 0}:
+            "nms": 2 * len(pairs), "attention": 0, "sweep": 0,
+            "dual_softmax": 0}:
         raise AssertionError(f"fine-tune pairs {len(pairs)}, launches "
                              f"{launches['finetune']}")
     if not all(np.isfinite(h["chunk_mean"]) for h in ft_hist):
@@ -2925,7 +3056,7 @@ def sharded_path(dev, reset_counts, read_counts, img0, img1, tile_pairs: dict,
     seq = make_mesh(SHARDED_SLOTS, dp=1, tp=SHARDED_SLOTS,
                     axis_names=("data", "seq"))
     out = {"seq_mesh": seq.shape, "card": card}
-    launches = {"nms": 0, "attention": 0, "sweep": 0}
+    launches = dict.fromkeys(read_counts(), 0)
 
     def add(counts):
         for k, v in counts.items():
@@ -3537,12 +3668,13 @@ def main() -> None:
     from icepy4d_tpu_torch.io import read_ply, write_ply
     from icepy4d_tpu_torch.models import LightGlue
     from icepy4d_tpu_torch.models import superpoint as sp_module
-    from icepy4d_tpu_torch.ops import _build, attention, dense, nms, sweep
+    from icepy4d_tpu_torch.ops import (_build, attention, dense, dual_softmax,
+                                       nms, sweep)
     from icepy4d_tpu_torch.sfm import PlaneSweepStereo
     from icepy4d_tpu_torch.sfm import dense as sfm_dense
 
     kernels_used = {"nms": nms.KERNEL, "attention": attention.KERNEL,
-                    "sweep": sweep.KERNEL}
+                    "sweep": sweep.KERNEL, "dual_softmax": dual_softmax.KERNEL}
 
     def reset_counts():
         for k in kernels_used.values():
@@ -3621,6 +3753,13 @@ def main() -> None:
     for window in sweep.WINDOWS:
         check_sweep(dense, *sweep_inputs(dev, 50, 261, 4.4), -9.0, 9.0, 19,
                     window, "window")
+    # tails around the kernel's 128-row blocks and 128-column tiles,
+    # one row or column, unequal lengths, masks, a tile pair with every
+    # column masked and one with every row
+    for shape in ((1, 1000, 1337), (3, 517, 300), (3, 129, 1), (2, 1, 255)):
+        check_dual_softmax(dual_softmax, dev, *shape, p_keep=0.85,
+                           dead=True, seed=shape[1])
+    ds_err = check_dual_softmax(dual_softmax, dev, *DSMAX_SHAPE, seed=3)
 
     # -- 4. matcher path -------------------------------------------------------
     img0, img1 = shifted_pair()
@@ -3937,10 +4076,10 @@ def main() -> None:
         # that forward over 12 tile pairs
         per_image = launches["nms"] // 2
         first3 = {"nms": 2 * launches["nms"],
-                  "attention": 2 * launches["attention"], "sweep": 0}
-        tracked3 = {"nms": first3["nms"] + 3 * per_image,
-                    "attention": first3["attention"] + seeded_attention3,
-                    "sweep": 0}
+                  "attention": 2 * launches["attention"], "sweep": 0,
+                  "dual_softmax": 0}
+        tracked3 = dict(first3, nms=first3["nms"] + 3 * per_image,
+                        attention=first3["attention"] + seeded_attention3)
         multicam = multicam_path(dev, reset_counts, read_counts, scene3,
                                  cfg3, [first3, tracked3, tracked3])
         del scene3
@@ -3983,6 +4122,22 @@ def main() -> None:
     sweep_bound, sweep_by = lower_bound(px * (2 * 4 + 3 * 4 + 1),
                                         px * 128 * SWEEP_OPS, F32_FLOPS)
 
+    c0, c1, m0, m1 = dual_softmax_inputs(*DSMAX_SHAPE, dev, seed=4)
+    ds_ms = cuda_ms(lambda: dual_softmax.dual_softmax_kernel(
+        c0, c1, m0, m1, DSMAX_T), 10)
+    ds_plain_ms = cuda_ms(lambda: dual_softmax.best_of(
+        dual_softmax.confidence_plain(c0, c1, m0, m1, DSMAX_T)), 3)
+    B, L0, L1 = DSMAX_SHAPE
+    # the benchmark's coarse_match bound: the similarity's 2 L0 L1 d
+    # operations at the tensor cores' dense rate; f32 features and bool
+    # masks in, bj and bi int64 and bv f32 out
+    ds_bound, ds_by = lower_bound(
+        B * (L0 + L1) * (256 * 4 + 1) + B * L0 * 12 + B * L1 * 8,
+        2 * B * L0 * L1 * 256, BF16_FLOPS)
+    log(f"dual softmax {DSMAX_SHAPE} d 256: {ds_ms:.3f} ms, plain "
+        f"{ds_plain_ms:.3f} ms, bound {ds_bound:.3f} ms ({ds_by})")
+    del c0, c1, m0, m1
+
     kernels = [
         {"name": "fused_nms_border", "route": "cuda",
          "source": "icepy4d_tpu_torch/csrc/nms.cu",
@@ -4008,6 +4163,15 @@ def main() -> None:
          "max_abs_err": sweep_err,
          "ms": sweep_ms, "plain_ms": sweep_plain_ms, "bound_ms": sweep_bound,
          "bound_by": sweep_by, "library_ms": None},
+        {"name": "dual_softmax", "route": "cuda",
+         "source": "icepy4d_tpu_torch/csrc/dual_softmax.cu",
+         "replaces": None, "shape": DSMAX_SHAPE,
+         "launches": loftr["loftr"]["launches"]["dual_softmax"]
+         + loftr["loftr_card_vs_cpu"]["launches"],
+         "max_abs_err": ds_err["bv_max_abs"],
+         "max_rel_err": ds_err["bv_max_rel"],
+         "ms": ds_ms, "plain_ms": ds_plain_ms, "bound_ms": ds_bound,
+         "bound_by": ds_by, "library_ms": None},
     ]
     log(json.dumps({"main_path": {
         "warm_s": times["warm"], "cold_s": times["cold"], "stages_s": stages,

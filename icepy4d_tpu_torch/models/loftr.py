@@ -23,8 +23,8 @@ records four spans under the name prefix `LoFTR.span_prefix` (the
 caller's: the matcher hands its own timer and `match.loftr`):
 `<prefix>.backbone` (key `backbone`), `<prefix>.coarse` (`coarse`:
 position encoding and the coarse transformer), `<prefix>.coarse_match`
-(`coarse_match`: similarity, dual softmax, mutual NN, threshold, border,
-top-k) and `<prefix>.fine` (`fine`: windows, merge, fine transformer,
+(`coarse_match`: the dual softmax's best matches, mutual NN, threshold,
+border, top-k) and `<prefix>.fine` (`fine`: windows, merge, fine transformer,
 expectation). None of them synchronises the device; without a timer
 none is opened.
 """
@@ -40,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from icepy4d_tpu_torch.device import full_f32_matmul, resolve_device
+from icepy4d_tpu_torch.ops import dual_softmax
 from icepy4d_tpu_torch.ops.topk import safe_top_k
 
 BN_EPS = 1e-5
@@ -240,23 +241,32 @@ def _border_ok(h: int, w: int, rm: int, device) -> torch.Tensor:
     return (r >= rm) & (r < h - rm) & (c >= rm) & (c < w - rm)
 
 
-def coarse_match(conf: torch.Tensor, mask0: torch.Tensor, mask1: torch.Tensor,
-                 hw0_c: tuple, hw1_c: tuple, thr: float, border_rm: int,
-                 max_matches: int):
-    """Mutual-NN, threshold and border removal on conf (B, L0, L1); the
-    `max_matches` best survivors of each pair -> (i, j, conf, valid),
-    each (B, M). Equal confidences come out in index order."""
-    bj = conf.argmax(2)                                   # (B, L0)
-    bv = conf.amax(2)
-    bi = conf.argmax(1)                                   # (B, L1)
-    l0 = conf.shape[1]
-    mutual = torch.gather(bi, 1, bj) == torch.arange(l0, device=conf.device)
+def select_matches(bj: torch.Tensor, bv: torch.Tensor, bi: torch.Tensor,
+                   mask0: torch.Tensor, mask1: torch.Tensor, hw0_c: tuple,
+                   hw1_c: tuple, thr: float, border_rm: int,
+                   max_matches: int):
+    """Mutual-NN, threshold and border removal on each row's best column
+    bj (B, L0) and its confidence bv (B, L0) and each column's best row bi
+    (B, L1); the `max_matches` best survivors of each pair -> (i, j, conf,
+    valid), each (B, M). Equal confidences come out in index order."""
+    l0 = bj.shape[1]
+    dev = bj.device
+    mutual = torch.gather(bi, 1, bj) == torch.arange(l0, device=dev)
     ok = (mutual & (bv > thr)
-          & _border_ok(*hw0_c, border_rm, conf.device)
-          & _border_ok(*hw1_c, border_rm, conf.device)[bj]
+          & _border_ok(*hw0_c, border_rm, dev)
+          & _border_ok(*hw1_c, border_rm, dev)[bj]
           & mask0 & torch.gather(mask1, 1, bj))
     topv, topi = safe_top_k(torch.where(ok, bv, 0.0), max_matches)
     return topi, torch.gather(bj, 1, topi), topv, topv > 0.0
+
+
+def coarse_match(conf: torch.Tensor, mask0: torch.Tensor, mask1: torch.Tensor,
+                 hw0_c: tuple, hw1_c: tuple, thr: float, border_rm: int,
+                 max_matches: int):
+    """`select_matches` on the best matches of the confidences conf
+    (B, L0, L1)."""
+    return select_matches(*dual_softmax.best_of(conf), mask0, mask1, hw0_c,
+                          hw1_c, thr, border_rm, max_matches)
 
 
 def gather_windows(feat_f: torch.Tensor, idx: torch.Tensor, wc: int,
@@ -321,8 +331,9 @@ class LoFTR:
     TF32.
     """
 
-    # the dual-softmax similarity is L0 x L1 f32: past 32k coarse
-    # tokens a pair's forward does not fit one device
+    # the CPU's dense dual softmax holds an L0 x L1 f32 similarity: past
+    # 32k coarse tokens a pair's forward would not fit one device (the
+    # card's kernel holds none; the cap is the same on both)
     MAX_COARSE_TOKENS = 32768
 
     def __init__(self, d_model_c: int = 256, d_model_f: int = 128,
@@ -405,24 +416,23 @@ class LoFTR:
     def coarse_confidence(self, c0: torch.Tensor, c1: torch.Tensor,
                           mask_c0: torch.Tensor,
                           mask_c1: torch.Tensor) -> torch.Tensor:
-        """Dual-softmax confidences (B, L0, L1)."""
-        n0 = c0 / math.sqrt(self.d_model_c)
-        n1 = c1 / math.sqrt(self.d_model_c)
-        sim = torch.bmm(n0, n1.transpose(1, 2)).div_(self.dsmax_temperature)
-        sim.masked_fill_(~(mask_c0[:, :, None] & mask_c1[:, None, :]), -1e9)
-        conf = torch.softmax(sim, 1)
-        return conf.mul_(torch.softmax(sim, 2))
+        """Dual-softmax confidences (B, L0, L1), the dense matrix (the
+        forward takes only its best matches: `dual_softmax.best_matches`)."""
+        return dual_softmax.confidence_plain(c0, c1, mask_c0, mask_c1,
+                                             self.dsmax_temperature)
 
     def _forward(self, imgs0, imgs1, mask_c0, mask_c1) -> dict:
         c0, c1, ff0, ff1, hw0_c, hw1_c = self.coarse_features(
             imgs0, imgs1, mask_c0, mask_c1)
         with self._span("coarse_match"):
-            conf = self.coarse_confidence(c0, c1, mask_c0, mask_c1)
+            # on a card the kernel, with no L0 x L1 matrix; on the CPU
+            # the dense confidences and their reductions
+            best = dual_softmax.best_matches(c0, c1, mask_c0, mask_c1,
+                                             self.dsmax_temperature)
             l0 = hw0_c[0] * hw0_c[1]
-            i, j, mconf, valid = coarse_match(
-                conf, mask_c0, mask_c1, hw0_c, hw1_c, self.thr,
+            i, j, mconf, valid = select_matches(
+                *best, mask_c0, mask_c1, hw0_c, hw1_c, self.thr,
                 self.border_rm, min(self.max_matches, l0))
-            del conf
         with self._span("fine"):
             return self._fine(c0, c1, ff0, ff1, hw0_c, hw1_c, i, j, mconf,
                               valid)

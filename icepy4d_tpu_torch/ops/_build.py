@@ -33,9 +33,10 @@ SOURCE_FLAGS = {
     # the sweep's costs must round as its plain version's do: no a * b + c
     # may be contracted into an FMA
     "sweep.cu": ["-fmad=false"],
-    # the attention entry looks libcuda's cuTensorMapEncodeTiled up
-    # with dlopen/dlsym (no link against libcuda)
+    # the attention and dual-softmax entries look libcuda's
+    # cuTensorMapEncodeTiled up with dlopen/dlsym (no link against libcuda)
     "attention.cu": ["-ldl"],
+    "dual_softmax.cu": ["-ldl"],
 }
 
 _lock = threading.Lock()

@@ -57,7 +57,6 @@ from icepy4d_tpu_torch.models.loftr import LoFTR, loftr_tree
 from icepy4d_tpu_torch.models.sift import SIFT
 from icepy4d_tpu_torch.models.superglue import SuperGlue, superglue_tree
 from icepy4d_tpu_torch.models.superpoint import SuperPoint
-from icepy4d_tpu_torch.ops.buckets import pad_bucket
 from icepy4d_tpu_torch.ops.image import (extract_tiles, quality_resize,
                                          rgb_to_gray)
 from icepy4d_tpu_torch.ops.topk import safe_top_k, top2_last
@@ -462,9 +461,8 @@ class ImageMatcherBase:
         k = int(out["matches0"].shape[1])
         counts = (out["matches0"] > -1).sum(1).cpu().numpy()
         cap = min(k, int(self._opt.get("max_matches_per_pair", 4096)),
-                  pad_bucket(max(int(counts.max(initial=0)), 1)))
+                  max(int(counts.max(initial=0)), 1))
         total = int(np.minimum(counts, cap).sum())
-        n_out = min(pad_bucket(max(total, 1)), len(counts) * cap)
         dev = self.device
         arrs = self._compact_on_device(
             feats0, feats1, out,
@@ -472,8 +470,8 @@ class ImageMatcherBase:
             torch.as_tensor(idx1, dtype=torch.int64, device=dev),
             torch.as_tensor(origins0, dtype=torch.float32, device=dev),
             torch.as_tensor(origins1, dtype=torch.float32, device=dev),
-            cap, n_out)
-        return tuple(a[:total].cpu().numpy() for a in arrs)
+            cap, total)
+        return tuple(a.cpu().numpy() for a in arrs)
 
     @staticmethod
     def _dedup(mk0, mk1, d0, d1, s0, s1, conf):

@@ -112,6 +112,13 @@ def _downsample(img: torch.Tensor, n: int) -> torch.Tensor:
     return img
 
 
+def _even_chunks(n: int, c: int) -> list[int]:
+    """Sizes of the ceil(n / c) chunks of n items, which differ by at most
+    one: 25 at c = 8 is 7, 6, 6, 6."""
+    f = -(-n // c)
+    return [n // f + (i < n % f) for i in range(f)]
+
+
 def _cat(outs: list[dict]) -> dict:
     return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
 
@@ -565,9 +572,9 @@ class ImageMatcherBase:
     def _prepare_tile_pairs(self, img0, img1, tile_selection: TileSelection,
                             grid, overlap: int, origin,
                             min_matches_per_tile: int):
-        """Tilers, tile-pair selection and the power-of-two pair batch
-        (as the JAX package pads it): (tiler0, tiler1, idx0, idx1,
-        pair_valid), or None when no pair is selected."""
+        """Tilers and the selected tile pairs: (tiler0, tiler1, idx0,
+        idx1), the tile indices of each pair, or None when no pair is
+        selected."""
         with self.timer.span("match.preselection", "preselection"):
             tiler0 = Tiler(grid=grid, overlap=overlap, origin=origin)
             tiler1 = Tiler(grid=grid, overlap=overlap, origin=origin)
@@ -579,13 +586,8 @@ class ImageMatcherBase:
         if not pairs:
             logger.warning("No tile pairs selected: no matches")
             return None
-        p = len(pairs)
-        bucket = _round_up_pow2(p)
-        idx0 = np.zeros(bucket, np.int64)
-        idx1 = np.zeros(bucket, np.int64)
-        idx0[:p] = [a for a, _ in pairs]
-        idx1[:p] = [b for _, b in pairs]
-        return tiler0, tiler1, idx0, idx1, np.arange(bucket) < p
+        return (tiler0, tiler1, np.array([a for a, _ in pairs], np.int64),
+                np.array([b for _, b in pairs], np.int64))
 
     def _match_tiled(self, img0, img1, tile_selection: TileSelection, grid,
                      overlap: int, origin, min_matches_per_tile: int):
@@ -594,7 +596,14 @@ class ImageMatcherBase:
         if prep is None:
             self._begin_matching()
             return self._empty_result()
-        tiler0, tiler1, idx0, idx1, pair_valid = prep
+        tiler0, tiler1, idx0, idx1 = prep
+        # the pair batch is padded to a power of two (as the JAX package
+        # pads it); `_auto_chunk` splits it into divisors
+        p = len(idx0)
+        pad = np.zeros(_round_up_pow2(p) - p, np.int64)
+        idx0 = np.concatenate([idx0, pad])
+        idx1 = np.concatenate([idx1, pad])
+        pair_valid = np.arange(len(idx0)) < p
         th, tw = tiler0.tile_size
         with self.timer.span("match.extraction", "extraction"):
             feats0 = self._extract_tiled(img0, tiler0.tile_origins(), th, tw,
@@ -1100,11 +1109,12 @@ class LoFTRMatcher(ImageMatcherBase):
     model records its four stages under `match.model` on the matcher's
     timer (`match.loftr.backbone`, `.coarse`, `.coarse_match`, `.fine`;
     a key sums over a call's forwards). `counters` holds the last
-    call's counts: `tile_pairs` (selected), `bucket` (the power-of-two
-    batch they are padded to), `forwards` and `pairs_per_forward` (the
-    chunks), `coarse_tokens` (a tile's, or the frame's), `matches_kept`
-    (coarse matches kept over the real pairs) and `pairs_at_cap`
-    (pairs whose kept matches reached `max_matches`).
+    call's counts: `tile_pairs` (selected), `bucket` (the tile pairs the
+    forwards ran: the selected ones, unpadded), `forwards` and
+    `pairs_per_forward` (the largest of the chunks, whose sizes differ
+    by at most one), `coarse_tokens` (a tile's, or the frame's),
+    `matches_kept` (coarse matches kept over the real pairs) and
+    `pairs_at_cap` (pairs whose kept matches reached `max_matches`).
     """
 
     def _build_models(self, opt: dict) -> None:
@@ -1173,23 +1183,35 @@ class LoFTRMatcher(ImageMatcherBase):
         with self.timer.span("match.assemble", "assemble"):
             return self._out_to_host(out)
 
-    def _pair_chunk(self, bucket: int, th: int, tw: int) -> int:
-        """Tile pairs a forward takes at once: the L0 x L1 similarity and
-        its two softmaxes (f32) and the pair mask, plus the fine windows,
+    # bytes a tile pair's forward allocates on the card at its peak, a
+    # tile pixel: both tiles' backbone activations, the coarse
+    # transformer, the dual-softmax kernel's workspace and the fine
+    # windows. `torch.cuda.max_memory_allocated` over forwards of 1, 2,
+    # 4, 6, 8 and 9 tile pairs of 1600x1200 on an H100 80GB read
+    # 2296.0-2296.5 bytes a tile pixel, with no fixed part
+    # (`scripts/loftr_forward_memory.py`); rounded up to leave room for
+    # another choice of cuDNN's convolution workspace.
+    CARD_BYTES_PER_PIXEL = 2400
+
+    def _pair_chunk(self, n: int, th: int, tw: int) -> int:
+        """Most of n tile pairs of th x tw a forward takes at once,
         against half the device memory that is free or that the caching
         allocator holds unused (2 GiB on the CPU). `mem_get_info` alone
         would shrink the chunk once an earlier call has left its blocks
-        in the allocator's cache."""
-        l_c = (th // 8) * (tw // 8)
-        per_pair = l_c * l_c * (3 * 4 + 1) + th * tw * 600
+        in the allocator's cache. The CPU's dense dual softmax holds the
+        L0 x L1 similarity and its two softmaxes (f32) and the pair mask
+        besides; the card's kernel holds none."""
         if self.device.type == "cuda":
+            per_pair = th * tw * self.CARD_BYTES_PER_PIXEL
             free = torch.cuda.mem_get_info(self.device)[0] \
                 + torch.cuda.memory_reserved(self.device) \
                 - torch.cuda.memory_allocated(self.device)
             budget = free // 2
         else:
+            l_c = (th // 8) * (tw // 8)
+            per_pair = l_c * l_c * (3 * 4 + 1) + th * tw * 600
             budget = 2 << 30
-        return self._auto_chunk(bucket, per_pair, budget=budget)
+        return max(1, min(n, budget // per_pair))
 
     def _match_tiled(self, img0, img1, tile_selection: TileSelection, grid,
                      overlap: int, origin, min_matches_per_tile: int):
@@ -1198,22 +1220,26 @@ class LoFTRMatcher(ImageMatcherBase):
         self._begin_matching()
         if prep is None:
             return self._empty_result()
-        tiler0, tiler1, idx0, idx1, pair_valid = prep
+        tiler0, tiler1, idx0, idx1 = prep
         th, tw = tiler0.tile_size
         org0 = tiler0.tile_origins()
         org1 = tiler1.tile_origins()
-        chunk = self._pair_chunk(len(idx0), th, tw)
+        # even chunks: a last forward of one tile pair would under-fill
+        # the linear attention's (B x heads)-batched products
+        sizes = _even_chunks(len(idx0), self._pair_chunk(len(idx0), th, tw))
         self.counters.update(
-            tile_pairs=int(pair_valid.sum()), bucket=len(idx0),
-            forwards=len(idx0) // chunk, pairs_per_forward=chunk,
+            tile_pairs=len(idx0), bucket=sum(sizes), forwards=len(sizes),
+            pairs_per_forward=max(sizes),
             coarse_tokens=(-(-th // 8)) * (-(-tw // 8)))
         outs = []
         with self.timer.span("match.model", "model"):
-            for i in range(0, len(idx0), chunk):
+            i = 0
+            for n in sizes:
                 outs.append(self.matcher.match_batch(
-                    extract_tiles(img0, org0[idx0[i:i + chunk]], th, tw),
-                    extract_tiles(img1, org1[idx1[i:i + chunk]], th, tw),
-                    pair_valid[i:i + chunk]))
+                    extract_tiles(img0, org0[idx0[i:i + n]], th, tw),
+                    extract_tiles(img1, org1[idx1[i:i + n]], th, tw),
+                    np.ones(n, bool)))
+                i += n
         with self.timer.span("match.assemble", "assemble"):
             res = self._out_to_host(_cat(outs),
                                     org0.astype(np.float32)[idx0],

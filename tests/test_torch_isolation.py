@@ -29,6 +29,7 @@ def _imports(path: Path):
                             REPO / "scripts" / "degensac_seeds.py",
                             REPO / "scripts" / "time_torch_kernels.py",
                             REPO / "scripts" / "rehearse_seasons_cpu.py",
+                            REPO / "scripts" / "loftr_forward_memory.py",
                             # the season renderer chip_smoke.py imports
                             REPO / "tests" / "torch_port_inputs.py"],
                          ids=lambda p: str(p.relative_to(REPO)))

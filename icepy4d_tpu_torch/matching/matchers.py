@@ -3,9 +3,10 @@
 `SemiDenseMatcher` and `LoFTRMatcher` in
 `icepy4d_tpu/matching/matchers.py`).
 
-A tiled match runs the extractor (SuperPoint, DISK, ALIKED or SIFT, by
-opt "extractor") once per image over a batch of tiles (in chunks that
-fit an activation budget) and the matcher once over the batch of
+A tiled match runs the extractor (SuperPoint, DISK, the repository's
+ALIKED-style model, the published ALIKED-n16 or SIFT, by opt
+"extractor") once per image over a batch of tiles (in chunks that fit an
+activation budget) and the matcher once over the batch of
 selected tile pairs. Keypoint sets are fixed-size with validity masks;
 matched rows are packed on the device and only they cross to the host,
 where keypoints are deduplicated and verified. LoFTR is detector-free:
@@ -41,6 +42,9 @@ from icepy4d_tpu_torch.matching.geometric_verification import \
 from icepy4d_tpu_torch.matching.templatematch import forient, oc_track
 from icepy4d_tpu_torch.matching.tiling import Tiler
 from icepy4d_tpu_torch.models.aliked import ALIKED
+from icepy4d_tpu_torch.models.aliked_n16 import (ALIKEDN16,
+                                                 load_state_dict_source,
+                                                 random_state_dict)
 from icepy4d_tpu_torch.models.convert import (aliked_params,
                                               bundled_checkpoint, disk_params,
                                               lightglue_params,
@@ -65,6 +69,11 @@ from icepy4d_tpu_torch.utils.timer import AverageTimer
 logger = logging.getLogger("icepy4d_tpu_torch")
 
 MIN_MATCHES_PER_TILE = 5
+# peak bytes one ALIKED-n16 extraction allocates a tile pixel on the card
+# (torch.cuda.max_memory_allocated over 3400 x 2400 tiles, less what was
+# held before: 798.2-798.3 at 1 and 2 tiles on an H100,
+# `scripts/aliked_extract_memory.py`)
+ALIKED_N16_BYTES_PER_PIXEL = 799
 # similarity of a masked pair in the NN matchers: the lowest float32, as
 # in the JAX package (the ratio and lone-candidate tests read it)
 _NEG = torch.finfo(torch.float32).min
@@ -175,6 +184,9 @@ class ImageMatcherBase:
         self._feat_cache: dict | None = None
         self._cache_armed = False
         self.timer = AverageTimer(device=self.device)
+        # what the last call's extractions counted (ALIKED-n16 counts);
+        # the extractors add to this very dict
+        self.counters: dict = {}
         self._build_models(opt)
         self._load_extractor(opt)
         self._reset()
@@ -196,8 +208,11 @@ class ImageMatcherBase:
         ALIKED from opt superpoint_params (a JAX-layout tree) or
         superpoint_weights (an .npz), else the bundled checkpoint; DISK
         from superpoint_params, an .npz or a kornia checkpoint at
-        superpoint_weights, else random weights from opt "seed"; SIFT
-        has none."""
+        superpoint_weights, else random weights from opt "seed";
+        ALIKED-n16 ("aliked_n16") in the published state-dict layout
+        from superpoint_params (names to arrays) or superpoint_weights
+        (an .npz of those names or the published `aliked-n16.pth`), else
+        random weights from opt "seed"; SIFT has none."""
         kind = self._extractor_kind()
         if kind == "superpoint":
             self._sp_state = superpoint_state_dict(_load_tree(
@@ -207,6 +222,15 @@ class ImageMatcherBase:
             self._sp_state = aliked_params(_load_tree(
                 opt, "superpoint_params", "superpoint_weights",
                 "aliked_synthetic.npz"))
+        elif kind == "aliked_n16":
+            source = opt.get("superpoint_params",
+                             opt.get("superpoint_weights"))
+            if source is None:
+                logger.warning("ALIKED-n16: no checkpoint given - random "
+                               "weights")
+                self._sp_state = random_state_dict(int(opt.get("seed", 0)))
+            else:
+                self._sp_state = load_state_dict_source(source)
         elif kind == "disk":
             path = opt.get("superpoint_weights")
             if "superpoint_params" in opt:
@@ -226,6 +250,7 @@ class ImageMatcherBase:
 
     def _reset(self) -> None:
         d = self.descriptor_dim
+        self.counters.clear()
         self._mkpts0 = np.empty((0, 2), np.float32)
         self._mkpts1 = np.empty((0, 2), np.float32)
         self._descriptors0 = np.empty((d, 0), np.float32)
@@ -277,14 +302,17 @@ class ImageMatcherBase:
 
     @property
     def descriptor_dim(self) -> int:
-        return 128 if self._extractor_kind() in ("sift", "disk", "aliked") \
-            else 256
+        return 128 if self._extractor_kind() in ("sift", "disk", "aliked",
+                                                 "aliked_n16") else 256
 
     # -- building blocks -----------------------------------------------------
 
     def _superpoint(self, max_keypoints: int):
         """The local-feature extractor: SuperPoint, DISK or ALIKED (NMS
-        radius max(nms_radius // 2, 2) for the last two), or the
+        radius max(nms_radius // 2, 2) for the last two), ALIKED-n16
+        (DKD in top-K mode at NMS radius opt nms_radius, default 2; no
+        threshold; its spans go to the matcher's timer under
+        `match.aliked` and its counts to `counters`), or the
         parameter-free SIFT, by opt "extractor"."""
         kind = self._extractor_kind()
         if kind == "sift":
@@ -298,6 +326,15 @@ class ImageMatcherBase:
                     max_keypoints=key[1], contrast_threshold=key[2],
                     edge_threshold=key[3], upsample=key[4],
                     dual_orientation=key[5], device=self.device)
+            return self._sp_cache[key]
+        if kind == "aliked_n16":
+            key = (kind, max_keypoints, int(self._opt.get("nms_radius", 2)))
+            if key not in self._sp_cache:
+                ext = ALIKEDN16(max_keypoints=key[1], nms_radius=key[2],
+                                device=self.device)
+                ext.timer, ext.span_prefix = self.timer, "match.aliked"
+                ext.counters = self.counters
+                self._sp_cache[key] = ext.load_state_dict(self._sp_state)
             return self._sp_cache[key]
         key = (
             kind,
@@ -337,12 +374,15 @@ class ImageMatcherBase:
         # peak live trunk state per tile pixel: SuperPoint two full-res
         # 64-channel maps; DISK's full-res up block (the 80-channel input
         # through norm and gate, 129 out); ALIKED's four upsampled
-        # aggregates, their concat and the normalised map
+        # aggregates, their concat and the normalised map; ALIKED-n16 the
+        # bytes one extraction allocates a tile pixel on the card
         kind = self._extractor_kind()
         if kind == "disk":
             per_px = 2048
         elif kind == "aliked":
             per_px = 1024
+        elif kind == "aliked_n16":
+            per_px = ALIKED_N16_BYTES_PER_PIXEL
         else:
             per_px = 128 * (2 if str(self._opt.get(
                 "activation_dtype", "float32")) == "bfloat16" else 4)
@@ -750,8 +790,8 @@ class LightGlueMatcher(ImageMatcherBase):
     superpoint_lightglue.pth) or superpoint_params / matcher_params
     (parameter trees in the JAX layout). With no weights given, the repository's bundled
     checkpoints (weights/*.npz) are loaded; LightGlue over the 128-d
-    DISK or ALIKED descriptors then takes random weights from opt
-    "seed" (the bundled one takes SuperPoint's).
+    DISK, ALIKED or ALIKED-n16 descriptors then takes random weights
+    from opt "seed" (the bundled one takes SuperPoint's).
     """
 
     def _build_models(self, opt: dict) -> None:

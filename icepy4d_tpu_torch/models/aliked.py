@@ -2,6 +2,13 @@
 `icepy4d_tpu/models/aliked.py`): a multi-scale backbone and the sparse
 deformable descriptor head.
 
+This is the repository's own, self-trained model (extractor "aliked",
+`weights/aliked_synthetic.npz`), which follows the ALIKED paper in
+spirit and not the published network: its stages run at 1, 1/2, 1/4 and
+1/8, it has no batch norms and no deformable convolutions, and its SDDH
+is an MLP over a 5x5 patch. The published ALIKED-n16 is
+`models/aliked_n16.py` (extractor "aliked_n16").
+
   * 4-stage conv backbone (1, 1/2, 1/4, 1/8 resolution), each stage
     1x1-projected and bilinearly upsampled to full resolution,
     concatenated into one dense feature map;

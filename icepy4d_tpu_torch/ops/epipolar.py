@@ -121,7 +121,10 @@ def homography_sym_transfer(H: torch.Tensor, x0: torch.Tensor,
     x0h, x1h = _homog(x0), _homog(x1)
     Hx0 = x0h @ H.mT
     fwd = Hx0[..., :2] / _safe(Hx0[..., 2:3])
-    Hinv_x1 = torch.linalg.solve(H, x1h.mT).mT
+    # a singular hypothesis (a degenerate minimal sample) gives non-finite
+    # errors, so no inliers, as jnp.linalg.solve gives them; solve would
+    # raise and end the whole match
+    Hinv_x1 = torch.linalg.solve_ex(H, x1h.mT)[0].mT
     bwd = Hinv_x1[..., :2] / _safe(Hinv_x1[..., 2:3])
     return ((fwd - x1) ** 2).sum(-1) + ((bwd - x0) ** 2).sum(-1)
 

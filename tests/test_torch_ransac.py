@@ -171,3 +171,18 @@ def test_degensac_outcome(scene):
     assert bool(deg_p) == bool(deg_j)
     assert jaccard(inl_p.numpy(), np.asarray(inl_j)) >= 0.95
     assert np.median(sampson_np(F_p.numpy(), x0[truth], x1[truth])) < th ** 2
+
+
+def test_singular_homography_has_no_inliers():
+    """A singular hypothesis among the batch (a degenerate sample) reads
+    non-finite transfer errors in both packages instead of raising."""
+    x = np.random.default_rng(0).uniform(0, 100, (20, 2)).astype(np.float32)
+    H = np.stack([np.eye(3, dtype=np.float32),
+                  np.array([[1, 2, 3], [2, 4, 6], [0, 0, 1]], np.float32)])
+    got = ep.homography_sym_transfer(torch.from_numpy(H), torch.from_numpy(x),
+                                     torch.from_numpy(x)).numpy()
+    want = np.stack([np.asarray(jep.homography_sym_transfer(
+        jnp.asarray(h), jnp.asarray(x), jnp.asarray(x))) for h in H])
+    assert np.allclose(got[0], 0.0, atol=1e-6)
+    assert not np.isfinite(got[1]).any() and not np.isfinite(want[1]).any()
+    assert not (got[1] < 3.0 ** 2).any()
